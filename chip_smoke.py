@@ -4,18 +4,29 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card at the main path's shapes, proves the
-golden wide-Fibonacci instance and compares it with the committed JAX
-proof, checks a mid-size CUDA proof against the CPU one, then proves and
-verifies wide Fibonacci at 2^16 x 32 and 2^18 x 64.  Each phase prints
-one line (name, seconds, result); any failure exits non-zero.  The
-second-to-last line is the kernel table as JSON, the last line the result
-JSON.  Imports nothing of JAX.
+plain PyTorch version on the card at the shapes its path gives it, then
+drives four paths, each with the launch counts set to 0 just before it and
+read just after:
+
+  * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
+    committed JAX proof, a 2^12 x 32 CUDA proof against the CPU one, then
+    proves and verifies 2^16 x 32 and 2^18 x 64;
+  * the roofline probes (tstwo_tpu_torch/measure_roofline.py), which run
+    the M31 probe kernels;
+  * LogUp: the golden 2^8 proof against the committed JAX proof, 2^12 CUDA
+    proofs against CPU ones for both `pairs` modes, then proves and
+    verifies 2^16 and 2^20;
+  * GKR: 2^12 batch proofs of each layer kind against CPU ones, then a
+    GrandProduct + LogUpGeneric batch at 2^20, verified, with its claims
+    checked against the input MLEs.
+
+Each phase prints one line (name, seconds, result); any failure exits
+non-zero.  The second-to-last line is the kernel table as JSON, the last
+line the result JSON.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -23,6 +34,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port_wide_fib_log8x8_seed0.json"
+LOGUP_FIXTURE = ROOT / "tests" / "data" / "torch_port_logup_log8_seed0.json"
 CSRC = "tstwo_tpu_torch/csrc/"
 REPLACES = {
     "cfft_forward": "tstwo_tpu/ops/pallas/fft_kernels.py:545",
@@ -30,7 +42,11 @@ REPLACES = {
     "cfft_block_resident": "tstwo_tpu/ops/pallas/fft_kernels.py:147",
     "blake2s": "tstwo_tpu/ops/blake2s.py:262",
     "deinterleave": "tstwo_tpu/ops/pallas/interleave.py:50",
+    "m31_mul": "tstwo_tpu/ops/pallas/m31_kernels.py:58",
+    "m31_mul_chain": "tstwo_tpu/ops/pallas/m31_kernels.py:90",
 }
+P = (1 << 31) - 1
+M31_EDGE = [0, 1, 2, P - 1, P - 2, 1 << 16, (1 << 16) - 1, (1 << 30) + 12345]
 
 
 def phase(name: str, seconds: float, result: str) -> None:
@@ -42,23 +58,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() over `reps` runs after one warm run."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def max_abs_err(a, b) -> int:
     import torch
 
@@ -68,20 +67,23 @@ def max_abs_err(a, b) -> int:
 
 
 def compare_kernels(device):
-    """Phase 3: every kernel against its plain version at the main path's
-    shapes (exact: tolerance 0).  Returns the kernel-table rows."""
+    """Phase 3: every kernel against its plain version at the shapes its
+    paths give it (exact: tolerance 0).  Returns the kernel-table rows."""
     import numpy as np
     import torch
 
     from tstwo_tpu_torch.circle import CanonicCoset
-    from tstwo_tpu_torch.ops import blake2s, fft, fri_ops
+    from tstwo_tpu_torch.measure_roofline import time_ms
+    from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
     from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
     from tstwo_tpu_torch.utils import to_torch_u32
 
     rng = np.random.default_rng(1)
-    P = (1 << 31) - 1
-    # the 2^16 x 32 prove's twiddle tree (root coset of log 18)
+    # the twiddle trees of the 2^16 x 32 wide-Fibonacci prove and of the
+    # LogUp 2^20 prove (root cosets of log 18 and 22)
     tree = precompute_twiddles(CanonicCoset.new(18).circle_domain().half_coset)
+    tree22 = precompute_twiddles(
+        CanonicCoset.new(22).circle_domain().half_coset)
 
     def rand(shape, high=P):
         return to_torch_u32(rng.integers(0, high, size=shape, dtype=np.uint64)
@@ -106,28 +108,73 @@ def compare_kernels(device):
                      "source": CSRC + source, "replaces": REPLACES[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
 
-    for name, (batch, log_n), inverse in [
-            ("cfft_forward", (32, 17), False),
-            ("cfft_forward", (4, 18), False),
-            ("cfft_inverse", (32, 16), True),
-            ("cfft_block_resident", (32, 10), False)]:
+    # wide Fibonacci 2^16 x 32: extension, composition, interpolation; the
+    # block-resident stage alone.  LogUp 2^20: extensions of 1, 2 and 4
+    # columns, the composition, interpolations of the trace and the
+    # composition.
+    for name, (batch, log_n), inverse, twiddles in [
+            ("cfft_forward", (32, 17), False, tree),
+            ("cfft_forward", (4, 18), False, tree),
+            ("cfft_inverse", (32, 16), True, tree),
+            ("cfft_block_resident", (32, 10), False, tree),
+            ("cfft_forward", (1, 21), False, tree22),
+            ("cfft_forward", (4, 21), False, tree22),
+            ("cfft_forward", (4, 22), False, tree22),
+            ("cfft_inverse", (4, 20), True, tree22),
+            ("cfft_inverse", (4, 21), True, tree22)]:
         x = rand((batch, 1 << log_n))
-        line, circle, buf = tree.fft_twiddles(log_n, inverse, device)
+        line, circle, buf = twiddles.fft_twiddles(log_n, inverse, device)
         check(name, f"[{batch},2^{log_n}]",
               lambda: fft.cfft_cuda(x, buf, log_n, inverse),
               lambda: fft.fft_plain(x, line, circle, inverse), "cfft.cu")
 
-    for (n_words, log_n), byte_len in [((32, 17), 128), ((16, 16), 64)]:
+    # wide Fibonacci: 128-byte leaves (32 columns), 64-byte nodes.  LogUp
+    # 2^20: leaves of 1, 2 and 4 columns, and the 80-byte two-block hashes
+    # of a node level that takes in columns.  Words past the message are
+    # zero, as hash_words_major pads them.
+    for (n_words, log_n), byte_len in [
+            ((32, 17), 128), ((16, 16), 64), ((16, 21), 4), ((16, 21), 8),
+            ((16, 21), 16), ((16, 22), 16), ((32, 21), 80)]:
         w = rand((n_words, 1 << log_n), 1 << 32)
-        check("blake2s", f"[{n_words},2^{log_n}]",
+        w[-(-byte_len // 4):] = 0
+        check("blake2s", f"[{n_words},2^{log_n}] {byte_len} B",
               lambda: blake2s.hash_words_major_cuda(w, byte_len),
               lambda: blake2s.hash_words_major_plain(w, byte_len),
               "blake2s.cu")
 
-    x = rand((4, 1 << 18))
-    check("deinterleave", "[4,2^18]", lambda: fri_ops.deinterleave_cuda(x),
-          lambda: tuple(t.contiguous() for t in fri_ops.deinterleave_plain(x)),
-          "deinterleave.cu")
+    # wide Fibonacci 2^16 FRI layer; the LogUp 2^20 prove's largest
+    # deinterleaves; the first halving of a GKR 2^20 layer
+    for shape in [(4, 1 << 18), (8, 1 << 22), (4, 4, 1 << 21), (4, 1 << 20)]:
+        x = rand(shape)
+        check("deinterleave",
+              "[" + ",".join(f"2^{d.bit_length() - 1}" if d > 8 else str(d)
+                             for d in shape) + "]",
+              lambda: fri_ops.deinterleave_cuda(x),
+              lambda: tuple(t.contiguous()
+                            for t in fri_ops.deinterleave_plain(x)),
+              "deinterleave.cu")
+
+    # the roofline probe's shapes: N = 2^24, 8 dependent products
+    a, b = rand(1 << 24), rand(1 << 24)
+    check("m31_mul", "[2^24]", lambda: m31_kernels.mul_cuda(a, b),
+          lambda: m31_kernels.mul_plain(a, b), "m31_kernels.cu")
+    check("m31_mul_chain", "[2^24] reps 8",
+          lambda: m31_kernels.mul_chain_cuda(a, b, 8),
+          lambda: m31_kernels.mul_chain_plain(a, b, 8), "m31_kernels.cu")
+    # the Pallas tests' edge values at lengths the TPU tiling refused
+    t0 = time.perf_counter()
+    for n in (1, 1000, 4097):
+        ea = to_torch_u32(np.resize(np.array(M31_EDGE, np.uint32), n), device)
+        eb = ea.flip(0).contiguous()
+        for reps in (0, 1, 8):
+            if max_abs_err(m31_kernels.mul_chain_cuda(ea, eb, reps),
+                           m31_kernels.mul_chain_plain(ea, eb, reps)):
+                fail(f"m31_mul_chain edge values N={n} reps={reps}")
+        if max_abs_err(m31_kernels.mul_cuda(ea, eb),
+                       m31_kernels.mul_plain(ea, eb)):
+            fail(f"m31_mul edge values N={n}")
+    phase("kernel m31 edge values N=1,1000,4097", time.perf_counter() - t0,
+          "m31_mul and m31_mul_chain (reps 0, 1, 8) exact")
     return rows
 
 
@@ -140,8 +187,9 @@ def proof_json(proof) -> str:
 def main() -> None:
     if not (ROOT / "tstwo_tpu_torch" / "kernels.py").is_file():
         fail("tstwo_tpu_torch is not beside this script")
-    if not FIXTURE.is_file():
-        fail(f"missing golden fixture {FIXTURE}")
+    for fixture in (FIXTURE, LOGUP_FIXTURE):
+        if not fixture.is_file():
+            fail(f"missing golden fixture {fixture}")
     import torch
 
     if not torch.cuda.is_available():
@@ -226,8 +274,8 @@ def main() -> None:
               f"{time.perf_counter() - t1:.3f} s;"
               f" peak device memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
-    launches = dict(kernels.LAUNCHES)
-    phase("launches", 0.0, json.dumps(launches, sort_keys=True))
+    launches = launch_counts("wide_fibonacci", (
+        "cfft_forward", "cfft_inverse", "blake2s", "deinterleave"))
     counts = {
         "cfft_forward": launches["cfft_forward"],
         "cfft_inverse": launches["cfft_inverse"],
@@ -237,16 +285,224 @@ def main() -> None:
         "blake2s": launches["blake2s"],
         "deinterleave": launches["deinterleave"],
     }
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+
+    # 7. the roofline probes: the M31 probe kernels' path
+    launches = roofline(device)
+    counts.update(m31_mul=launches["m31_mul"],
+                  m31_mul_chain=launches["m31_mul_chain"])
+
+    # 8-10. LogUp, 11-12. GKR
+    logup_phases(device)
+    gkr_phases(device)
+
     for row in rows:
         row["launches"] = counts[row["name"]]
-
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def launch_counts(path: str, required) -> dict:
+    """The launch counts of `path` (reset just before it ran); fails if a
+    kernel in `required` was not launched."""
+    from tstwo_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    phase(f"launches {path}", 0.0, json.dumps(launches, sort_keys=True))
+    for name in required:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the {path} path")
+    return launches
+
+
+def timed(fn):
+    """(result, seconds) of fn() ending in a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def roofline(device) -> dict:
+    """Phase 7: tstwo_tpu_torch.measure_roofline on the card, one figure a
+    line; returns the launch counts of that path."""
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.measure_roofline import measure
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    figures = measure(device)
+    launches = launch_counts("roofline", ("m31_mul", "m31_mul_chain"))
+    for key, value in figures.items():
+        print(f"  roofline {key}: {value}", flush=True)
+    if not figures["m31_mul_chain_parity"]:
+        fail("m31_mul_chain differs from its plain version at 2^24")
+    phase("roofline", time.perf_counter() - t0,
+          f"m31 mul kernel {figures['m31_mul_kernel_per_s']:.4e}/s, "
+          f"mul_chain kernel {figures['m31_mul_chain_kernel_per_s']:.4e}/s, "
+          f"stream {figures['stream_gb_per_s']:.1f} GB/s")
+    return launches
+
+
+def logup_phases(device) -> dict:
+    """Phases 8-10: the LogUp lookup AIR (three trees, LogUp interaction
+    trace).  Golden 2^8 proof, 2^12 CUDA == CPU for both `pairs` modes,
+    then two proves each at 2^16 and 2^20 with the launches counted."""
+    import torch
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.examples.logup_lookup import (prove_logup_lookup,
+                                                       verify_logup_lookup)
+
+    t0 = time.perf_counter()
+    proof, cfg, claimed = prove_logup_lookup(8, seed=0, pairs=True,
+                                             device=device)
+    if proof_json(proof) != LOGUP_FIXTURE.read_text().strip():
+        fail("LogUp log 8 CUDA proof differs from the JAX fixture")
+    verify_logup_lookup(proof, cfg, 8, claimed, True)
+    phase("logup golden", time.perf_counter() - t0,
+          "log 8 seed 0 pairs proof == JAX fixture; verified")
+
+    t0 = time.perf_counter()
+    for pairs in (True, False):
+        cuda_json = proof_json(prove_logup_lookup(12, seed=0, pairs=pairs,
+                                                  device=device)[0])
+        cpu_json = proof_json(prove_logup_lookup(12, seed=0, pairs=pairs,
+                                                 device="cpu")[0])
+        if cuda_json != cpu_json:
+            fail(f"LogUp log 12 pairs={pairs} CUDA proof differs from CPU")
+    phase("logup mid_size", time.perf_counter() - t0,
+          "log 12 CUDA proofs == CPU plain proofs (pairs and single)")
+
+    kernels.reset_launches()
+    for log_n in (16, 20):
+        walls = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats(device)
+            (proof, cfg, claimed), wall = timed(lambda: prove_logup_lookup(
+                log_n, seed=0, device=device))
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated(device)
+        _, verify_s = timed(lambda: verify_logup_lookup(proof, cfg, log_n,
+                                                        claimed))
+        phase(f"logup prove {log_n}", walls[1],
+              f"two proves {walls[0]:.3f} s, {walls[1]:.3f} s; verified in "
+              f"{verify_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB;"
+              f" proof {proof.size_estimate()} bytes")
+    return launch_counts("logup", ("cfft_forward", "cfft_inverse", "blake2s",
+                                   "deinterleave"))
+
+
+GKR_KINDS = ("GrandProduct", "LogUpGeneric", "LogUpMultiplicities",
+             "LogUpSingles")
+
+
+def gkr_layer(kind: str, n_vars: int, seed: int, device):
+    """A GKR input layer of `kind` over 2^n_vars points, from numpy (the
+    same values on every device)."""
+    import numpy as np
+
+    from tstwo_tpu_torch.lookups.gkr import Layer
+    from tstwo_tpu_torch.lookups.mle import BaseMle, Mle
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    rng = np.random.default_rng(seed)
+    n = 1 << n_vars
+    num = to_torch_u32(rng.integers(0, P, size=(4, n), dtype=np.uint32),
+                       device)
+    den = to_torch_u32(rng.integers(1, P, size=(4, n), dtype=np.uint32),
+                       device)
+    if kind == "GrandProduct":
+        return Layer(kind, data=Mle(num))
+    if kind == "LogUpGeneric":
+        return Layer(kind, numerators=Mle(num), denominators=Mle(den))
+    if kind == "LogUpMultiplicities":
+        base = to_torch_u32(rng.integers(0, P, size=n, dtype=np.uint32),
+                            device)
+        return Layer(kind, numerators=BaseMle(base), denominators=Mle(den))
+    return Layer(kind, denominators=Mle(den))
+
+
+def flat_gkr_proof(proof) -> list:
+    """A GkrBatchProof as a flat list of ints."""
+    out = []
+    for sc in proof.sumcheck_proofs:
+        for rp in sc.round_polys:
+            out.append(len(rp.coeffs))
+            for c in rp.coeffs:
+                out.extend(c.to_ints())
+    for masks in proof.layer_masks_by_instance:
+        out.append(len(masks))
+        for mask in masks:
+            for a, b in mask.columns_:
+                out.extend(a.to_ints() + b.to_ints())
+    for claims in proof.output_claims_by_instance:
+        for c in claims:
+            out.extend(c.to_ints())
+    return out
+
+
+def gkr_phases(device) -> dict:
+    """Phases 11-12: GKR batch proofs.  2^12 CUDA == CPU for each layer
+    kind, then a GrandProduct + LogUpGeneric batch at 2^20: two proves,
+    the batch verifier, and its claims against the input MLEs."""
+    import torch
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.lookups.gkr import (GATE_GRAND_PRODUCT, GATE_LOGUP,
+                                             partially_verify_batch,
+                                             prove_batch)
+
+    t0 = time.perf_counter()
+    for i, kind in enumerate(GKR_KINDS):
+        cuda_proof, _ = prove_batch(Blake2sChannel(),
+                                    [gkr_layer(kind, 12, i, device)])
+        cpu_proof, _ = prove_batch(Blake2sChannel(),
+                                   [gkr_layer(kind, 12, i, "cpu")])
+        if flat_gkr_proof(cuda_proof) != flat_gkr_proof(cpu_proof):
+            fail(f"GKR {kind} 2^12 CUDA proof differs from the CPU proof")
+    phase("gkr mid_size", time.perf_counter() - t0,
+          "2^12 CUDA proofs == CPU plain proofs for all four layer kinds")
+
+    log_n = 20
+    layers = [gkr_layer("GrandProduct", log_n, 10, device),
+              gkr_layer("LogUpGeneric", log_n, 11, device)]
+    kernels.reset_launches()
+    walls = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(device)
+        (proof, artifact), wall = timed(
+            lambda: prove_batch(Blake2sChannel(), layers))
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated(device)
+    art, verify_s = timed(lambda: partially_verify_batch(
+        [GATE_GRAND_PRODUCT, GATE_LOGUP], proof, Blake2sChannel()))
+    if art.ood_point != artifact.ood_point or \
+            art.claims_to_verify_by_instance != \
+            artifact.claims_to_verify_by_instance:
+        fail("GKR 2^20 verifier artifact differs from the prover's")
+    # the input MLEs at the OOD point, on the card and, as a witness apart
+    # from the CUDA path, on CPU copies made from the same numpy values
+    cpu_layers = [gkr_layer("GrandProduct", log_n, 10, "cpu"),
+                  gkr_layer("LogUpGeneric", log_n, 11, "cpu")]
+    for where, (gp, lg) in (("card", layers), ("CPU", cpu_layers)):
+        if art.claims_to_verify_by_instance != [
+                [gp.data.eval_at_point(art.ood_point)],
+                [lg.numerators.eval_at_point(art.ood_point),
+                 lg.denominators.eval_at_point(art.ood_point)]]:
+            fail(f"GKR 2^20 claims differ from the input MLEs ({where}) at "
+                 "the OOD point")
+    phase(f"gkr prove 2^{log_n}", walls[1],
+          f"GrandProduct + LogUpGeneric batch: two proves {walls[0]:.3f} s, "
+          f"{walls[1]:.3f} s; verified in {verify_s:.3f} s; claims == input "
+          "MLEs at the OOD point on the card and on the CPU; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    return launch_counts("gkr", ("deinterleave",))
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from tstwo_tpu_torch import kernels
-from tstwo_tpu_torch.ops import blake2s, fft, fri_ops
+from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
 from tstwo_tpu_torch.utils import to_torch_u32
 
 P = (1 << 31) - 1
@@ -77,6 +77,29 @@ def test_deinterleave_kernel_takes_a_view_at_an_odd_offset(device):
         _exact(got, want.contiguous())
 
 
+M31_EDGE = np.array([0, 1, 2, P - 1, P - 2, 1 << 16, (1 << 16) - 1,
+                     (1 << 30) + 12345], dtype=np.uint32)
+
+
+@pytest.mark.parametrize("reps", [0, 1, 5, 8])
+@pytest.mark.parametrize("n", [1, 1000, 1024, 4097])
+def test_m31_kernels_match_plain_on_edge_values(device, n, reps):
+    """Any N (no N % 1024 tiling), the edge values of the Pallas tests."""
+    a = np.resize(M31_EDGE, n)
+    a_t, b_t = to_torch_u32(a, device), to_torch_u32(a[::-1].copy(), device)
+    _exact(m31_kernels.mul_cuda(a_t, b_t), m31_kernels.mul_plain(a_t, b_t))
+    _exact(m31_kernels.mul_chain_cuda(a_t, b_t, reps),
+           m31_kernels.mul_chain_plain(a_t, b_t, reps))
+
+
+def test_m31_kernels_match_plain_on_random_values(device):
+    rng = np.random.default_rng(12)
+    a, b = _rand(rng, (1 << 20) + 3, device), _rand(rng, (1 << 20) + 3, device)
+    _exact(m31_kernels.mul_cuda(a, b), m31_kernels.mul_plain(a, b))
+    _exact(m31_kernels.mul_chain_cuda(a, b, 8),
+           m31_kernels.mul_chain_plain(a, b, 8))
+
+
 def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     rng = np.random.default_rng(3)
     kernels.reset_launches()
@@ -86,5 +109,8 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     fft.ifft_bitrev_to_natural(x, line, _rand(rng, (32,), device))
     blake2s.hash_words_major(_rand(rng, (8, 16), device, 1 << 32), 32)
     fri_ops._deinterleave(x)
+    m31_kernels.mul(x[0], x[1])
+    m31_kernels.mul_chain(x[0], x[1], 3)
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
-                                "blake2s": 1, "deinterleave": 1}
+                                "blake2s": 1, "deinterleave": 1,
+                                "m31_mul": 1, "m31_mul_chain": 1}

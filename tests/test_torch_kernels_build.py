@@ -1,0 +1,93 @@
+"""tstwo_tpu_torch.kernels.build() with a stand-in nvcc (runs on the CPU).
+
+The stand-in writes its `-o` file, or fails on the source named in
+FAKE_NVCC_FAIL; with FAKE_NVCC_HANG set, a source that compiles then
+records its pid there and sleeps.  The tests show what build() leaves
+behind: the library on success, and no object file and no running
+compiler when one compile fails.
+"""
+from __future__ import annotations
+
+import os
+import stat
+import time
+
+import pytest
+
+from tstwo_tpu_torch import kernels
+
+FAKE_NVCC = """#!/bin/sh
+out=""; prev=""; last=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  prev="$a"; last="$a"
+done
+case "$last" in
+  *.cu)
+    if [ -n "$FAKE_NVCC_FAIL" ] && [ "${last##*/}" = "$FAKE_NVCC_FAIL" ]; then
+      echo "error: cannot compile $last" >&2; exit 2
+    fi
+    echo "ptxas info: compiled ${last##*/}" >&2
+    : > "$out"
+    if [ -n "$FAKE_NVCC_HANG" ]; then
+      echo $$ >> "$FAKE_NVCC_HANG"; exec sleep 60
+    fi;;
+  *) : > "$out";;
+esac
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.delenv("FAKE_NVCC_FAIL", raising=False)
+    monkeypatch.delenv("FAKE_NVCC_HANG", raising=False)
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(kernels, "BUILD_INFO", {})
+    return tmp_path
+
+
+def _out_dir(root):
+    return root / "build" / kernels._source_hash()
+
+
+def test_build_links_every_source_and_leaves_only_the_library(fake_nvcc):
+    lib_path = kernels.build()
+    assert lib_path == _out_dir(fake_nvcc) / kernels.LIB_NAME
+    assert sorted(p.name for p in lib_path.parent.iterdir()) == [
+        kernels.LIB_NAME]
+    info = kernels.BUILD_INFO
+    assert info["cached"] is False
+    assert [line.split()[-1] for line in info["ptxas"].splitlines()] == list(
+        kernels.SOURCES)
+    assert kernels.build() == lib_path
+    assert kernels.BUILD_INFO["cached"] is True
+
+
+def test_failed_compile_kills_the_others_and_removes_objects(
+        fake_nvcc, monkeypatch):
+    pids = fake_nvcc / "pids"
+    monkeypatch.setenv("FAKE_NVCC_FAIL", kernels.SOURCES[0])
+    monkeypatch.setenv("FAKE_NVCC_HANG", str(pids))
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError,
+                       match=f"nvcc failed on {kernels.SOURCES[0]}"):
+        kernels.build()
+    assert time.perf_counter() - t0 < 30  # the others sleep 60 s
+    assert list(_out_dir(fake_nvcc).iterdir()) == []
+    for pid in pids.read_text().split() if pids.exists() else []:
+        with pytest.raises(ProcessLookupError):
+            os.kill(int(pid), 0)
+
+
+def test_failed_last_compile_removes_the_objects_built_before_it(
+        fake_nvcc, monkeypatch):
+    monkeypatch.setenv("FAKE_NVCC_FAIL", kernels.SOURCES[-1])
+    with pytest.raises(RuntimeError,
+                       match=f"nvcc failed on {kernels.SOURCES[-1]}"):
+        kernels.build()
+    assert list(_out_dir(fake_nvcc).iterdir()) == []

@@ -7,7 +7,8 @@ executed with:
   * PointEvaluator  -- OODS evaluation on host QM31 scalars,
   * DomainEvaluator -- whole-domain evaluation on device columns (the
                        analog of Rust's SimdDomainEvaluator: every
-                       constraint runs once over all rows, eagerly).
+                       constraint runs once over all rows, eagerly),
+  * AssertEvaluator -- debug: checks constraints vanish on the trace domain.
 
 reference constraint_framework/index.ts (whose domain path is a TS
 placeholder; semantics re-derived from Rust stwo constraint_framework).
@@ -33,7 +34,7 @@ from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
 from ..pcs import TreeSubspan
 from ..pcs.utils import TreeVec
-from ..utils import offset_bit_reversed_circle_domain_index, to_torch_u32
+from ..utils import bit_reverse_permutation, to_torch_u32
 from .expr import BaseExpr, SecureExpr
 from .logup import LogupAtRow, LookupElements, RelationEntry
 from .preprocessed import PreProcessedColumnId
@@ -254,27 +255,34 @@ class PointEvaluator(_LogupEvalMixin):
 
 @lru_cache(maxsize=None)
 def _offset_perm(trace_log: int, eval_log: int, offset: int) -> np.ndarray:
+    """Committed row i of the eval domain reads row perm[i] for a mask at
+    `offset` trace steps: the values of the JAX package's per-row loop
+    (utils.offset_bit_reversed_circle_domain_index, or the coset walk when
+    the domains are equal), computed with whole-array numpy."""
     n = 1 << eval_log
+    rev = bit_reverse_permutation(eval_log)  # rev[i] = bit_reverse_index(i)
     if trace_log == eval_log:
         # same-domain mask offset: walk the canonic coset order directly
-        from ..utils import (bit_reverse_index,
-                             circle_domain_index_to_coset_index,
-                             coset_index_to_circle_domain_index)
-
-        def idx(i):
-            k = circle_domain_index_to_coset_index(
-                bit_reverse_index(i, eval_log), eval_log)
-            k2 = (k + offset) % n
-            return bit_reverse_index(
-                coset_index_to_circle_domain_index(k2, eval_log), eval_log)
-
-        perm = np.fromiter((idx(i) for i in range(n)), dtype=np.int32, count=n)
+        k = np.where(rev < n // 2, 2 * rev, 2 * (n - 1 - rev) + 1)
+        k2 = (k + offset) % n
+        perm = rev[np.where(k2 % 2 == 0, k2 // 2, (2 * n - k2) >> 1)]
     else:
-        perm = np.fromiter(
-            (offset_bit_reversed_circle_domain_index(
-                i, trace_log, eval_log, offset)
-             for i in range(n)), dtype=np.int32, count=n)
-    return perm
+        half = n >> 1
+        step = offset * (1 << (eval_log - trace_log - 1))
+        moved = np.where(rev < half, (rev + step) % half,
+                         (rev - step) % half + half)
+        perm = rev[moved]
+    return perm.astype(np.int32)
+
+
+def _shifted(col: torch.Tensor, trace_log: int, eval_log: int,
+             offset: int) -> BaseExpr:
+    """The mask of `col` at `offset` trace steps (offset 0 is `col`)."""
+    if offset == 0:
+        return BaseExpr(col)
+    perm = torch.from_numpy(_offset_perm(trace_log, eval_log, offset)).to(
+        device=col.device, dtype=torch.int64)
+    return BaseExpr(col.index_select(-1, perm))
 
 
 class DomainEvaluator(_LogupEvalMixin):
@@ -320,16 +328,8 @@ class DomainEvaluator(_LogupEvalMixin):
         idx = self.col_index[interaction]
         self.col_index[interaction] += 1
         col = self.trace_evals[interaction][idx]
-        out = []
-        for off in offsets:
-            if off == 0:
-                out.append(BaseExpr(col))
-            else:
-                perm = torch.from_numpy(_offset_perm(
-                    self.trace_domain_log_size, self.eval_domain_log_size,
-                    off)).to(device=col.device, dtype=torch.int64)
-                out.append(BaseExpr(col.index_select(-1, perm)))
-        return out
+        return [_shifted(col, self.trace_domain_log_size,
+                         self.eval_domain_log_size, off) for off in offsets]
 
     def add_constraint(self, constraint) -> None:
         coeff = self.random_coeff_powers[self.constraint_index]  # [4]
@@ -342,6 +342,52 @@ class DomainEvaluator(_LogupEvalMixin):
     @staticmethod
     def combine_ef(values: Sequence[BaseExpr]) -> SecureExpr:
         return SecureExpr(torch.stack([v.arr for v in values]))
+
+
+class AssertEvaluator(_LogupEvalMixin):
+    """Debug evaluator: constraints must vanish on the trace domain
+    (Rust constraint_framework assert.rs).  trace_evals: per interaction, a
+    list of int32 [2^log_size] columns in bit-reversed order."""
+
+    def __init__(self, trace_evals: TreeVec, log_size: int,
+                 claimed_sum: Optional[QM31] = None):
+        self.trace_evals = trace_evals
+        self.log_size = log_size
+        self.col_index = [0] * len(trace_evals)
+        self._init_logup(claimed_sum, log_size)
+
+    def get_preprocessed_column(self, cid: PreProcessedColumnId) -> BaseExpr:
+        return self.next_interaction_mask(PREPROCESSED_TRACE_IDX, [0])[0]
+
+    def next_trace_mask(self) -> BaseExpr:
+        return self.next_interaction_mask(ORIGINAL_TRACE_IDX, [0])[0]
+
+    def next_interaction_mask(self, interaction: int,
+                              offsets: Sequence[int]) -> List[BaseExpr]:
+        idx = self.col_index[interaction]
+        self.col_index[interaction] += 1
+        col = self.trace_evals[interaction][idx]
+        return [_shifted(col, self.log_size, self.log_size, off)
+                for off in offsets]
+
+    def add_constraint(self, constraint) -> None:
+        arr = constraint.arr if isinstance(constraint, (BaseExpr, SecureExpr)) \
+            else constraint
+        if bool(torch.as_tensor(arr).any()):
+            raise AssertionError("constraint does not vanish on trace domain")
+
+    @staticmethod
+    def combine_ef(values: Sequence[BaseExpr]) -> SecureExpr:
+        return SecureExpr(torch.stack([v.arr for v in values]))
+
+
+def assert_constraints(trace_evals: TreeVec, log_size: int, framework_eval,
+                       claimed_sum: Optional[QM31] = None) -> None:
+    """Check all constraints vanish on the trace domain (debug aid)."""
+    ev = AssertEvaluator(trace_evals, log_size, claimed_sum)
+    framework_eval.evaluate(ev)
+    if not ev.logup.is_finalized:
+        raise AssertionError("logup fractions written but never finalized")
 
 
 class FrameworkEval:

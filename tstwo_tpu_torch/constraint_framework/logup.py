@@ -7,16 +7,28 @@ constraint_framework/logup.rs): the parts the evaluators use.
     running LogUp sum by `EvalAtRow.add_to_relation`.
   * `LogupAtRow` -- per-evaluation state: collected fractions and the
     cumsum shift (claimed_sum / 2^log_size), finalized into constraints.
+  * `LogupTraceGenerator` -- builds the interaction-trace secure columns:
+    per-batch column = running column sum of num/denom per row; the last
+    column additionally takes a coset-order inclusive prefix sum with the
+    per-row cumsum shift subtracted, so the grand total telescopes to zero
+    around the coset.
 
-The interaction-trace generator is not ported yet.
+Array-first: a "row write" is a whole-column write; fractions accumulate
+projectively on the columns' device (QM31 SoA int32 [4, n] tensors).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Sequence
 
+import torch
+
+from ..circle import CanonicCoset
 from ..fields import M31, QM31
 from ..lookups.utils import Fraction
+from ..ops import qm31 as qm31_ops
+from ..ops.prefix_sum import inclusive_prefix_sum_bit_rev_circle
+from ..poly.circle_poly import CircleEvaluation
 
 P = (1 << 31) - 1
 
@@ -69,6 +81,21 @@ class LookupElements:
         return _BoundRelation(
             [evaluator.secure_param(p) for p in self.alpha_powers],
             evaluator.secure_param(self.z))
+
+    def combine_cols(self, cols: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Device-column combine for interaction-trace generation: cols are
+        int32 [n] base columns or int32 [4, n] secure columns; returns the
+        QM31 column sum_i alpha^i * col_i - z as int32 [4, n]."""
+        if len(cols) > len(self.alpha_powers):
+            raise ValueError("combining more columns than relation size")
+        acc = None
+        for v, power in zip(cols, self.alpha_powers):
+            arr = qm31_ops.from_m31(v) if v.dim() == 1 else v
+            term = qm31_ops.mul(arr, qm31_ops.scalar(power, device=v.device)
+                                [:, None])
+            acc = term if acc is None else qm31_ops.add(acc, term)
+        return qm31_ops.sub(acc, qm31_ops.scalar(self.z, device=acc.device)
+                            [:, None])
 
     def __eq__(self, o) -> bool:
         return (isinstance(o, LookupElements) and o.z == self.z
@@ -124,3 +151,80 @@ class LogupAtRow:
         from ..air import INTERACTION_TRACE_IDX
 
         return LogupAtRow(INTERACTION_TRACE_IDX, QM31.zero(), 0)
+
+
+class LogupColGenerator:
+    """One interaction column: fractions accumulate projectively per row."""
+
+    def __init__(self, gen: "LogupTraceGenerator"):
+        self.gen = gen
+        self._num = None  # int32 [4, n], or [4, 1] for a scalar
+        self._den = None
+
+    def _coerce(self, x) -> torch.Tensor:
+        device = self.gen.device
+        if isinstance(x, QM31):
+            return qm31_ops.scalar(x, device=device)[:, None]
+        if isinstance(x, (int, M31)):
+            v = x.value if isinstance(x, M31) else x % P
+            return qm31_ops.scalar(QM31.from_u32_unchecked(v, 0, 0, 0),
+                                   device=device)[:, None]
+        return qm31_ops.from_m31(x) if x.dim() == 1 else x
+
+    def write_frac(self, numerator, denominator) -> None:
+        """Add numerator/denominator (whole columns, or scalars broadcast
+        over all rows) to this column's per-row fraction."""
+        num, den = self._coerce(numerator), self._coerce(denominator)
+        if self._num is None:
+            self._num, self._den = num, den
+        else:
+            self._num = qm31_ops.add(qm31_ops.mul(num, self._den),
+                                     qm31_ops.mul(self._num, den))
+            self._den = qm31_ops.mul(self._den, den)
+
+    def finalize_col(self) -> None:
+        if self._num is None:
+            raise ValueError("finalize_col before any write_frac")
+        n = 1 << self.gen.log_size
+        col = qm31_ops.mul(self._num, qm31_ops.inv(self._den))
+        col = col.expand(4, n).contiguous()
+        if self.gen._cols:
+            col = qm31_ops.add(col, self.gen._cols[-1])
+        self.gen._cols.append(col)
+
+
+class LogupTraceGenerator:
+    """Builds the LogUp interaction trace (stwo logup.rs
+    LogupTraceGenerator): one secure column per finalize batch; columns are
+    running column sums; `finalize_last` prefix-sums the final column in
+    coset order and returns (base-coordinate evaluations, claimed_sum).
+    Scalars written to a column are placed on `device`, the device of the
+    trace columns."""
+
+    def __init__(self, log_size: int, device="cpu"):
+        self.log_size = log_size
+        self.device = torch.device(device)
+        self._cols: List[torch.Tensor] = []
+
+    def new_col(self) -> LogupColGenerator:
+        return LogupColGenerator(self)
+
+    def finalize_last(self):
+        if not self._cols:
+            raise ValueError("no interaction columns written")
+        last = self._cols[-1]
+        # claimed sum: exact coordinate-wise total; each coordinate sums
+        # fewer than 2^32 values below 2^31 in int64, then one reduction
+        # and one transfer
+        totals = (last.to(torch.int64).sum(dim=1) % P).tolist()
+        claimed_sum = QM31.from_ints(totals)
+        cumsum_shift = claimed_sum.mul_m31(
+            M31.from_int(1 << self.log_size).inverse())
+        shifted = qm31_ops.sub(
+            last, qm31_ops.scalar(cumsum_shift, device=last.device)[:, None])
+        self._cols[-1] = inclusive_prefix_sum_bit_rev_circle(
+            shifted, self.log_size)
+        domain = CanonicCoset.new(self.log_size).circle_domain()
+        evals = [CircleEvaluation(domain, col[c])
+                 for col in self._cols for c in range(4)]
+        return evals, claimed_sum

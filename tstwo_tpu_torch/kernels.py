@@ -1,15 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels in csrc/.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, bound with ctypes.  The build happens at the first CUDA call,
-into build/tstwo_tpu_torch/<hash of sources and flags>/ beside the
-package, so a fresh checkout builds everything on first use and a later
-process reuses the library.  Importing this module needs neither CUDA nor
-nvcc.
+The sources compile with nvcc, one process per source in parallel, and
+link into one shared library with a plain C interface, bound with ctypes.
+The build happens at the first CUDA call, into
+build/tstwo_tpu_torch/<hash of sources and flags>/ beside the package, so
+a fresh checkout builds everything on first use and a later process
+reuses the library.  Importing this module needs neither CUDA nor nvcc.
 
 Each kernel counts its launches in `LAUNCHES`: the wrappers in ops/fft.py
-(forward and inverse CFFT apart), ops/blake2s.py and ops/fri_ops.py add
-one per call of the C entry point, and nowhere else.
+(forward and inverse CFFT apart), ops/blake2s.py, ops/fri_ops.py and
+ops/m31_kernels.py add one per call of the C entry point, and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -24,11 +25,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cfft.cu", "blake2s.cu", "deinterleave.cu")
+SOURCES = ("cfft.cu", "blake2s.cu", "deinterleave.cu", "m31_kernels.cu")
 HEADERS = ("m31.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libtstwo_kernels.so"
 
 _VP = ctypes.c_void_p
@@ -40,10 +41,15 @@ _SIGNATURES = {
                       ctypes.c_longlong, _VP),
     # src, even, odd, pairs, stream
     "tstwo_deinterleave": (_VP, _VP, _VP, ctypes.c_longlong, _VP),
+    # a, b, out, n, stream
+    "tstwo_m31_mul": (_VP, _VP, _VP, ctypes.c_longlong, _VP),
+    # a, b, out, n, reps, stream
+    "tstwo_m31_mul_chain": (_VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+                            _VP),
 }
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
-            "deinterleave": 0}
+            "deinterleave": 0, "m31_mul": 0, "m31_mul_chain": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -76,23 +82,48 @@ def _source_hash() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/ into the shared library unless it exists; its path."""
+    """Compile csrc/ into the shared library unless it exists; its path.
+
+    One nvcc per source, all started together, then one link.  If one
+    fails, the others are killed; no object file outlives the call."""
     out_dir = BUILD_ROOT / _source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{Path(s).stem}.{pid}.o" for s in SOURCES]
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib_path)
+    procs, logs = [], []
+    try:
+        for src, obj in zip(SOURCES, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                 str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):"
+                                   f"\n{err}")
+            logs.append(err)
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     BUILD_INFO.update(path=str(lib_path), seconds=time.perf_counter() - t0,
-                      cached=False, ptxas=res.stderr)
+                      cached=False, ptxas="".join(logs))
     return lib_path
 
 
