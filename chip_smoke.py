@@ -23,6 +23,16 @@ read just after:
 Each phase prints one line (name, seconds, result); any failure exits
 non-zero.  The second-to-last line is the kernel table as JSON, the last
 line the result JSON.  Imports nothing of JAX.
+
+A row of the kernel table: `ms` is the kernel's device time over a run of
+many launches between two CUDA events (warm L2), `cold_ms` its time after
+64 MiB were written, `host_us` what one call costs the enqueueing thread
+(tstwo_tpu_torch/measure_roofline.py::time_call); `plain_ms` the plain
+PyTorch version and `library_ms` (`library_host_us`) the PyTorch call for
+the same function, where one exists, timed the same way; `bound_ms` the least time the card
+could take, the larger of the bytes moved once over HBM_BYTES_PER_S and
+the integer operations over INT32_OPS_PER_S, and `bound_by` which of the
+two; `launches` the count from the path that runs the kernel.
 """
 from __future__ import annotations
 
@@ -41,10 +51,32 @@ REPLACES = {
     "cfft_inverse": "tstwo_tpu/ops/pallas/fft_kernels.py:380",
     "cfft_block_resident": "tstwo_tpu/ops/pallas/fft_kernels.py:147",
     "blake2s": "tstwo_tpu/ops/blake2s.py:262",
+    "merkle_layer": "tstwo_tpu/ops/blake2s.py:262, "
+                    "tstwo_tpu/ops/pallas/interleave.py:50",
+    "merkle_tail": "tstwo_tpu/ops/blake2s.py:262, "
+                   "tstwo_tpu/ops/pallas/interleave.py:50",
     "deinterleave": "tstwo_tpu/ops/pallas/interleave.py:50",
     "m31_mul": "tstwo_tpu/ops/pallas/m31_kernels.py:58",
     "m31_mul_chain": "tstwo_tpu/ops/pallas/m31_kernels.py:90",
 }
+# One H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device memory; 67
+# TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x 2 (a
+# fused multiply-add) x 1.98 GHz.  An SM issues int32 operations on half
+# of those lanes and an add, xor or shift is one operation, so the integer
+# peak is taken as a quarter of that figure: 1.675e13 operations/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# One Blake2s compress of a 64-byte block is 80 G-mixes of 12 operations
+# (4 adds, two of them of three inputs, 4 xors, 4 funnel shifts) and 16 xors
+# to fold the state: 976.  Only the xors and shifts are bound to the integer
+# lanes: an add can issue as a multiply-add on the float lanes beside them
+# (the kernel retires more than 1.675e13 of the 976 a second, which shows
+# it), so the bound counts the 8 xors and shifts of a G-mix and the fold.
+B2S_OPS_PER_BLOCK = 80 * 8 + 16
+# One M31 butterfly: a product (a wide multiply, two folds and a conditional
+# subtract: 9), a modular add (3) and a modular subtract (4).
+BUTTERFLY_OPS = 16
+M31_MUL_OPS = 9
 P = (1 << 31) - 1
 M31_EDGE = [0, 1, 2, P - 1, P - 2, 1 << 16, (1 << 16) - 1, (1 << 30) + 12345]
 
@@ -73,7 +105,7 @@ def compare_kernels(device):
     import torch
 
     from tstwo_tpu_torch.circle import CanonicCoset
-    from tstwo_tpu_torch.measure_roofline import time_ms
+    from tstwo_tpu_torch.measure_roofline import time_call, time_ms
     from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
     from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
     from tstwo_tpu_torch.utils import to_torch_u32
@@ -91,22 +123,45 @@ def compare_kernels(device):
 
     rows = []
 
-    def check(name, shape, kernel, plain, source):
+    def check(name, shape, kernel, plain, source, n_bytes, n_ops,
+              library=None):
+        """One row: `kernel` against `plain` (exact), both timed; the
+        bound from the bytes the function must move and the integer
+        operations it must do."""
         t0 = time.perf_counter()
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        got_t = got if isinstance(got, tuple) else (got,)
-        want_t = want if isinstance(want, tuple) else (want,)
+        got_t = got if isinstance(got, (tuple, list)) else (got,)
+        want_t = want if isinstance(want, (tuple, list)) else (want,)
+        if len(got_t) != len(want_t):
+            fail(f"{name} {shape}: {len(got_t)} results, plain {len(want_t)}")
         err = max(max_abs_err(g, w) for g, w in zip(got_t, want_t))
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        timing, plain_ms = time_call(kernel), time_ms(plain)
+        lib_t = {"ms": None, "host_us": None} if library is None \
+            else time_call(library, cold=False)
+        library_ms = lib_t["ms"]
+        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        by_ops = n_ops / INT32_OPS_PER_S * 1e3
+        bound_ms = max(by_bytes, by_ops)
         phase(f"kernel {name} {shape}", time.perf_counter() - t0,
-              f"max_abs_err {err} (tolerance 0), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"max_abs_err {err} (tolerance 0), kernel {timing['ms']:.4f} ms"
+              f" (cold {timing['cold_ms']:.4f} ms, host "
+              f"{timing['host_us']:.1f} us), plain {plain_ms:.4f} ms"
+              + (f", library {library_ms:.4f} ms (host "
+                 f"{lib_t['host_us']:.1f} us)" if library else "")
+              + f", bound {bound_ms:.4f} ms")
         if err != 0:
             fail(f"{name} {shape} disagrees with its plain version")
         rows.append({"name": name, "shape": shape, "route": "cuda",
                      "source": CSRC + source, "replaces": REPLACES[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": timing["ms"],
+                     "cold_ms": timing["cold_ms"],
+                     "host_us": timing["host_us"], "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes" if by_bytes >= by_ops
+                     else "operations",
+                     "library_ms": library_ms,
+                     "library_host_us": lib_t["host_us"]})
 
     # wide Fibonacci 2^16 x 32: extension, composition, interpolation; the
     # block-resident stage alone.  LogUp 2^20: extensions of 1, 2 and 4
@@ -126,41 +181,93 @@ def compare_kernels(device):
         line, circle, buf = twiddles.fft_twiddles(log_n, inverse, device)
         check(name, f"[{batch},2^{log_n}]",
               lambda: fft.cfft_cuda(x, buf, log_n, inverse),
-              lambda: fft.fft_plain(x, line, circle, inverse), "cfft.cu")
+              lambda: fft.fft_plain(x, line, circle, inverse), "cfft.cu",
+              n_bytes=4 * (2 * x.numel() + (1 << log_n)),
+              n_ops=BUTTERFLY_OPS * batch * (1 << (log_n - 1)) * log_n)
+
+    def hash_cost(n, byte_len, words_read):
+        """(bytes, operations) of n hashes of byte_len-byte messages that
+        read `words_read` words each and write 8."""
+        n_blocks = max(1, -(-byte_len // 64))
+        return (4 * n * (words_read + 8), B2S_OPS_PER_BLOCK * n_blocks * n)
 
     # wide Fibonacci: 128-byte leaves (32 columns), 64-byte nodes.  LogUp
     # 2^20: leaves of 1, 2 and 4 columns, and the 80-byte two-block hashes
-    # of a node level that takes in columns.  Words past the message are
-    # zero, as hash_words_major pads them.
+    # of a node level that takes in columns.  Here every word of the blocks
+    # is given and read, those past the message zero.
     for (n_words, log_n), byte_len in [
             ((32, 17), 128), ((16, 16), 64), ((16, 21), 4), ((16, 21), 8),
             ((16, 21), 16), ((16, 22), 16), ((32, 21), 80)]:
         w = rand((n_words, 1 << log_n), 1 << 32)
         w[-(-byte_len // 4):] = 0
+        n_bytes, n_ops = hash_cost(1 << log_n, byte_len, n_words)
         check("blake2s", f"[{n_words},2^{log_n}] {byte_len} B",
               lambda: blake2s.hash_words_major_cuda(w, byte_len),
               lambda: blake2s.hash_words_major_plain(w, byte_len),
-              "blake2s.cu")
+              "blake2s.cu", n_bytes, n_ops)
+
+    # Merkle layers as the commits give them to the kernel, columns read
+    # where they lie.  Leaf layers (counted as blake2s): the 64 columns of
+    # the 2^18 x 64 trace tree (256 B, four blocks), a FRI layer's [4, n]
+    # (16 B), LogUp 2^20's interaction stack.  Node layers (merkle_layer):
+    # 64 B from the child pairs alone; 80 B where 4 columns join (LogUp).
+    for name, log_n, n_cols, with_prev in [
+            ("blake2s", 19, 64, False), ("blake2s", 18, 4, False),
+            ("blake2s", 21, 4, False), ("merkle_layer", 18, 0, True),
+            ("merkle_layer", 16, 0, True), ("merkle_layer", 21, 0, True),
+            ("merkle_layer", 20, 4, True)]:
+        n = 1 << log_n
+        prev = rand((8, 2 * n), 1 << 32) if with_prev else None
+        cols = [rand((n_cols, n))] if n_cols else []
+        words = n_cols + (16 if with_prev else 0)
+        n_bytes, n_ops = hash_cost(n, 4 * words, words)
+        check(name,
+              (f"2^{log_n} nodes of [8,2^{log_n + 1}]" if with_prev else "")
+              + (" + " if with_prev and n_cols else "")
+              + (f"[{n_cols},2^{log_n}]" if n_cols else "")
+              + f" {4 * words} B",
+              lambda: blake2s.merkle_layer_cuda(prev, cols),
+              lambda: blake2s.merkle_layer_plain(prev, cols),
+              "blake2s.cu", n_bytes, n_ops)
+        del prev, cols
+
+    # the top of every tree: the layers of at most 2^TAIL_LOG nodes, one
+    # launch, each layer held against the plain loop; and the top of a tree
+    # of 2^3 leaves
+    for log in (blake2s.TAIL_LOG + 1, 3):
+        prev = rand((8, 1 << log), 1 << 32)
+        nodes = (1 << log) - 1
+        check("merkle_tail", f"{log} layers above [8,2^{log}]",
+              lambda: blake2s.merkle_tail_cuda(prev),
+              lambda: blake2s.merkle_tail_plain(prev), "blake2s.cu",
+              n_bytes=4 * 8 * ((1 << log) + nodes),
+              n_ops=B2S_OPS_PER_BLOCK * nodes)
 
     # wide Fibonacci 2^16 FRI layer; the LogUp 2^20 prove's largest
-    # deinterleaves; the first halving of a GKR 2^20 layer
+    # deinterleaves; the first halving of a GKR 2^20 layer.  The PyTorch
+    # call for the same function is the two strided copies.
     for shape in [(4, 1 << 18), (8, 1 << 22), (4, 4, 1 << 21), (4, 1 << 20)]:
         x = rand(shape)
+
+        def copies():
+            return tuple(t.contiguous() for t in fri_ops.deinterleave_plain(x))
+
         check("deinterleave",
               "[" + ",".join(f"2^{d.bit_length() - 1}" if d > 8 else str(d)
                              for d in shape) + "]",
-              lambda: fri_ops.deinterleave_cuda(x),
-              lambda: tuple(t.contiguous()
-                            for t in fri_ops.deinterleave_plain(x)),
-              "deinterleave.cu")
+              lambda: fri_ops.deinterleave_cuda(x), copies,
+              "deinterleave.cu", n_bytes=8 * x.numel(), n_ops=0,
+              library=copies)
 
     # the roofline probe's shapes: N = 2^24, 8 dependent products
     a, b = rand(1 << 24), rand(1 << 24)
     check("m31_mul", "[2^24]", lambda: m31_kernels.mul_cuda(a, b),
-          lambda: m31_kernels.mul_plain(a, b), "m31_kernels.cu")
+          lambda: m31_kernels.mul_plain(a, b), "m31_kernels.cu",
+          n_bytes=12 * a.numel(), n_ops=M31_MUL_OPS * a.numel())
     check("m31_mul_chain", "[2^24] reps 8",
           lambda: m31_kernels.mul_chain_cuda(a, b, 8),
-          lambda: m31_kernels.mul_chain_plain(a, b, 8), "m31_kernels.cu")
+          lambda: m31_kernels.mul_chain_plain(a, b, 8), "m31_kernels.cu",
+          n_bytes=12 * a.numel(), n_ops=8 * M31_MUL_OPS * a.numel())
     # the Pallas tests' edge values at lengths the TPU tiling refused
     t0 = time.perf_counter()
     for n in (1, 1000, 4097):
@@ -274,8 +381,7 @@ def main() -> None:
               f"{time.perf_counter() - t1:.3f} s;"
               f" peak device memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
-    launches = launch_counts("wide_fibonacci", (
-        "cfft_forward", "cfft_inverse", "blake2s", "deinterleave"))
+    launches = launch_counts("wide_fibonacci", MAIN_PATH_KERNELS)
     counts = {
         "cfft_forward": launches["cfft_forward"],
         "cfft_inverse": launches["cfft_inverse"],
@@ -283,6 +389,8 @@ def main() -> None:
         "cfft_block_resident": launches["cfft_forward"]
         + launches["cfft_inverse"],
         "blake2s": launches["blake2s"],
+        "merkle_layer": launches["merkle_layer"],
+        "merkle_tail": launches["merkle_tail"],
         "deinterleave": launches["deinterleave"],
     }
 
@@ -301,6 +409,13 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# what a prove through the commitment scheme must launch: both CFFTs, leaf
+# hashes, node layers that read their child pairs, the one-launch top of a
+# tree, and the folds' deinterleave
+MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
+                     "merkle_layer", "merkle_tail", "deinterleave")
 
 
 def launch_counts(path: str, required) -> dict:
@@ -393,8 +508,7 @@ def logup_phases(device) -> dict:
               f"two proves {walls[0]:.3f} s, {walls[1]:.3f} s; verified in "
               f"{verify_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB;"
               f" proof {proof.size_estimate()} bytes")
-    return launch_counts("logup", ("cfft_forward", "cfft_inverse", "blake2s",
-                                   "deinterleave"))
+    return launch_counts("logup", MAIN_PATH_KERNELS)
 
 
 GKR_KINDS = ("GrandProduct", "LogUpGeneric", "LogUpMultiplicities",

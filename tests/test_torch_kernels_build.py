@@ -91,3 +91,44 @@ def test_failed_last_compile_removes_the_objects_built_before_it(
                        match=f"nvcc failed on {kernels.SOURCES[-1]}"):
         kernels.build()
     assert list(_out_dir(fake_nvcc).iterdir()) == []
+
+
+@pytest.fixture
+def fake_entry(monkeypatch):
+    """A stand-in C entry point `tstwo_probe`, device 0 current, stream 7."""
+    import torch
+
+    calls = []
+
+    def probe(*args):
+        calls.append(args)
+        return probe.err
+
+    probe.err = 0
+    monkeypatch.setitem(kernels._entries, "probe", probe)
+    monkeypatch.setitem(kernels.LAUNCHES, "probe", 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(kernels, "_current_stream", lambda index: 7)
+    monkeypatch.setattr(kernels, "lib", lambda: pytest.fail(
+        "launch looked the library up again"))
+    return probe, calls
+
+
+def test_launch_calls_the_cached_entry_on_the_current_stream(fake_entry):
+    import torch
+
+    probe, calls = fake_entry
+    kernels.launch("probe", "probe", torch.device("cuda", 0), 11, 22)
+    kernels.launch("probe", "probe", torch.device("cuda"), 33)
+    assert calls == [(11, 22, 7), (33, 7)]
+    assert kernels.LAUNCHES["probe"] == 2
+
+
+def test_launch_raises_and_counts_nothing_when_the_launch_failed(fake_entry):
+    import torch
+
+    probe, calls = fake_entry
+    probe.err = 9
+    with pytest.raises(RuntimeError, match="probe kernel launch failed"):
+        kernels.launch("probe", "probe", torch.device("cuda", 0), 1)
+    assert kernels.LAUNCHES["probe"] == 0

@@ -1,20 +1,40 @@
-// Batched Blake2s-256 of N equal-length messages, word-major.
+// Batched Blake2s-256 of N equal-length messages, word-major, and the
+// Merkle layers built from it.
 //
 // Replaces tstwo_tpu/ops/blake2s.py::_hash_words_major_pallas_impl
-// (kernel bodies _wm_kernel and _wm_kernel_fori).
+// (kernel bodies _wm_kernel and _wm_kernel_fori) and, on the Merkle path,
+// the tstwo_tpu/ops/pallas/interleave.py::deinterleave_pallas call that
+// split the child layer in front of it.
 //
 // What bounds it on the H100: integer operations.  A 64-byte block costs
-// 10 rounds x 8 G-mixes x 14 add/xor/rotate ops per message against 64
-// bytes read, so the ALUs, not device memory, set the rate.  The design
-// spends no instruction on anything else: one thread per message, the 16
-// state and 16 message words in registers, rotations as one funnel shift
-// each, and the message schedule (SIGMA) written out per round so every
-// message-word index is a compile-time constant.  Loads are coalesced:
-// words are word-major [W, N], so thread i reads words[w * N + i].
+// 10 rounds x 8 G-mixes x 12 add/xor/rotate operations per message
+// against 64 bytes read, so the ALUs, not device memory, set the rate.
+// The compress spends no instruction on anything else: one thread per
+// message, the 16 state and 16 message words in registers, rotations as
+// one funnel shift each, and the message schedule (SIGMA) written out per
+// round so every message-word index is a compile-time constant.
+//
+// What the Merkle path lost was around the compress: a deinterleave of the
+// child layer, a concatenation with the columns, a zero padding, each a
+// pass through device memory and a launch.  So a thread builds its message
+// itself:
+//   * words 0-15 of a node from the child layer prev[8, 2n]: one aligned
+//     8-byte load prev[w, 2i..2i+1] is word w of the left and of the right
+//     child, coalesced across threads;
+//   * then the rows of the columns that join at this layer, read where
+//     they lie: a by-value table of (pointer, row stride, rows) segments,
+//     walked in order by a cursor that is the same for every thread (a
+//     block that lies within one segment is 16 loads at constant offsets);
+//   * words past the message are zero constants, never loaded.
+// The top of a tree, where a layer is smaller than the card, is one launch
+// of one block (merkle_tail_kernel): every level from the first of at most
+// 2^kMaxTailLog nodes down to the root, the level just hashed kept in
+// shared memory, __syncthreads() between levels.
 //
 // Semantics: unkeyed Blake2s-256 (hashlib.blake2s).  Block count, byte
-// counter t and final flag are as in _wm_kernel: W = 16 * n_blocks words,
-// t = 64 * (b + 1) for a middle block and byte_len for the last one.
+// counter t and final flag are as in _wm_kernel: n_blocks = max(1,
+// ceil(byte_len / 64)), t = 64 * (b + 1) for a middle block and byte_len
+// for the last one.  node = blake2s(left || right || LE32(column values)).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,38 +97,200 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16],
 }
 
 constexpr int kThreads = 128;
+constexpr int kMaxSegments = 16;
+constexpr int kTailThreads = 1024;
+constexpr int kMaxTailLog = 12;  // first tail level: at most 2^12 nodes
 
-__global__ void blake2s_kernel(const uint32_t* __restrict__ words,
-                               uint32_t* __restrict__ out, int n_blocks,
-                               long long n, long long byte_len) {
+// Rows of message words, word-major: word r of message i at ptr[r * stride + i].
+struct Segment {
+  const uint32_t* ptr;
+  long long stride;
+  int rows;
+};
+
+struct Segments {
+  Segment seg[kMaxSegments];
+  int count;
+};
+
+// h0 = IV ^ parameter block (digest length 32, fanout 1, depth 1)
+#define B2S_H0                                                      \
+  {B2S_IV0 ^ 0x01010020u, B2S_IV1, B2S_IV2, B2S_IV3, B2S_IV4, B2S_IV5, \
+   B2S_IV6, B2S_IV7}
+
+__device__ __forceinline__ uint64_t block_counter(int b, int n_blocks,
+                                                  long long byte_len) {
+  return b == n_blocks - 1 ? static_cast<uint64_t>(byte_len)
+                           : static_cast<uint64_t>(b + 1) * 64u;
+}
+
+// The cursor over the column words of message i: p points at the next word,
+// `left` rows of the open segment remain, `next` is the segment after it.
+// It moves the same way in every thread.
+struct Cursor {
+  const uint32_t* p;
+  long long stride;
+  int left;
+  int next;
+};
+
+__device__ __forceinline__ void open_segment(Cursor& c, const Segments& segs,
+                                             long long i) {
+  if (c.next < segs.count) {
+    const Segment& s = segs.seg[c.next++];
+    c.p = s.ptr + i;
+    c.stride = s.stride;
+    c.left = s.rows;
+  }
+}
+
+// Message i = [left child || right child, if prev] || segment rows in order
+// || zeros up to 16 * n_blocks words.  prev: [8, 2n] words, 8-byte aligned.
+__global__ void blake2s_layer_kernel(const uint32_t* __restrict__ prev,
+                                     const __grid_constant__ Segments segs,
+                                     uint32_t* __restrict__ out, int n_blocks,
+                                     long long n, long long byte_len) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  // h0 = IV ^ parameter block (digest length 32, fanout 1, depth 1)
-  uint32_t h[8] = {B2S_IV0 ^ 0x01010020u, B2S_IV1, B2S_IV2, B2S_IV3,
-                   B2S_IV4, B2S_IV5, B2S_IV6, B2S_IV7};
+  uint32_t h[8] = B2S_H0;
+  Cursor c = {nullptr, 0, 0, 0};
+  open_segment(c, segs, i);
   for (int b = 0; b < n_blocks; ++b) {
     uint32_t m[16];
+    if (b == 0 && prev != nullptr) {
 #pragma unroll
-    for (int w = 0; w < 16; ++w) m[w] = words[static_cast<size_t>(16 * b + w) * n + i];
-    const bool final = b == n_blocks - 1;
-    const uint64_t t = final ? static_cast<uint64_t>(byte_len)
-                             : static_cast<uint64_t>(b + 1) * 64u;
-    compress(h, m, t, final);
+      for (int w = 0; w < 8; ++w) {
+        const uint2 pair =
+            reinterpret_cast<const uint2*>(prev + static_cast<size_t>(w) * 2 * n)[i];
+        m[w] = pair.x;
+        m[8 + w] = pair.y;
+      }
+    } else if (c.left >= 16) {
+      // a whole block from one segment: 16 loads at constant row offsets
+#pragma unroll
+      for (int w = 0; w < 16; ++w) m[w] = c.p[w * c.stride];
+      c.p += 16 * c.stride;
+      c.left -= 16;
+      if (c.left == 0) open_segment(c, segs, i);
+    } else {
+#pragma unroll
+      for (int w = 0; w < 16; ++w) {
+        uint32_t word = 0;
+        if (c.left > 0) {
+          word = *c.p;
+          c.p += c.stride;
+          if (--c.left == 0) open_segment(c, segs, i);
+        }
+        m[w] = word;
+      }
+    }
+    compress(h, m, block_counter(b, n_blocks, byte_len), b == n_blocks - 1);
   }
 #pragma unroll
   for (int w = 0; w < 8; ++w) out[static_cast<size_t>(w) * n + i] = h[w];
 }
 
+// One block hashes the levels log - 1, ..., 0 above prev[8, 2^log]: every
+// node the 64-byte message left || right.  out is [8, 2^log - 1]: level l
+// is its columns 2^log - 2^(l+1) ... + 2^l, the levels side by side, largest
+// first.  Each level also goes into shared memory, where the next level
+// reads its children: buf holds two levels, 8 * 2^(log-1) and 8 * 2^(log-2)
+// words, used in turn.
+__global__ void __launch_bounds__(kTailThreads)
+merkle_tail_kernel(const uint32_t* __restrict__ prev, uint32_t* __restrict__ out,
+                   int log) {
+  extern __shared__ __align__(16) uint32_t buf[];
+  const uint32_t* src = prev;
+  uint32_t* dst = buf;
+  uint32_t* other = buf + (static_cast<size_t>(8) << (log - 1));
+  for (int level = log - 1; level >= 0; --level) {
+    const int n = 1 << level;
+    const int total = (1 << log) - 1;
+    uint32_t* level_out = out + (total + 1 - 2 * n);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      uint32_t h[8] = B2S_H0;
+      uint32_t m[16];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const uint2 pair = reinterpret_cast<const uint2*>(src + w * 2 * n)[i];
+        m[w] = pair.x;
+        m[8 + w] = pair.y;
+      }
+      compress(h, m, 64, true);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        dst[w * n + i] = h[w];
+        level_out[w * total + i] = h[w];
+      }
+    }
+    __syncthreads();
+    src = dst;
+    uint32_t* const next = other;
+    other = dst;
+    dst = next;
+  }
+}
+
 }  // namespace
 
-// words: [16 * n_blocks, n] int32 bit-views of u32; out: [8, n].
-// Returns the cudaError_t of the launch, or 0.
-extern "C" int tstwo_blake2s(const int32_t* words, int32_t* out, int n_blocks,
-                             long long n, long long byte_len, void* stream_ptr) {
+// One layer of n messages.  prev: the child layer [8, 2n] (8-byte aligned)
+// or null; seg_ptrs / seg_strides / seg_rows: n_segs <= 16 word-major row
+// segments (host arrays, null if there is none), appended to the message in
+// order; out: [8, n].
+// All words are int32 bit-views of u32.  byte_len is the message length;
+// the words given must not exceed 16 * max(1, ceil(byte_len / 64)).
+// Returns the cudaError_t of the launch, or 0; cudaErrorInvalidValue for
+// arguments the kernel does not take.
+extern "C" int tstwo_blake2s_layer(const int32_t* prev, const void* const* seg_ptrs,
+                                   const long long* seg_strides, const int* seg_rows,
+                                   int n_segs, int32_t* out, long long n,
+                                   long long byte_len, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n_segs < 0 || n_segs > kMaxSegments || n <= 0 || byte_len < 0 ||
+      reinterpret_cast<uintptr_t>(prev) % 8 != 0)
+    return cudaErrorInvalidValue;
+  Segments segs;
+  long long words = prev != nullptr ? 16 : 0;
+  segs.count = n_segs;
+  if (n_segs > 0 && (seg_ptrs == nullptr || seg_strides == nullptr || seg_rows == nullptr))
+    return cudaErrorInvalidValue;
+  for (int s = 0; s < n_segs; ++s) {
+    if (seg_rows[s] <= 0) return cudaErrorInvalidValue;
+    segs.seg[s] = {static_cast<const uint32_t*>(seg_ptrs[s]), seg_strides[s],
+                   seg_rows[s]};
+    words += seg_rows[s];
+  }
+  const long long n_blocks = byte_len > 64 ? (byte_len + 63) / 64 : 1;
+  if (words > 16 * n_blocks || n_blocks > (1 << 20)) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  blake2s_kernel<<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const uint32_t*>(words), reinterpret_cast<uint32_t*>(out),
-      n_blocks, n, byte_len);
+  blake2s_layer_kernel<<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(prev), segs, reinterpret_cast<uint32_t*>(out),
+      static_cast<int>(n_blocks), n, byte_len);
+  return cudaGetLastError();
+}
+
+// The top of a tree in one launch.  prev: [8, 2^log] (8-byte aligned), 1 <=
+// log <= kMaxTailLog + 1; out: [8, 2^log - 1], the levels log - 1 ... 0 side
+// by side, level l the next 2^l columns.
+extern "C" int tstwo_merkle_tail(const int32_t* prev, int32_t* out, int log,
+                                 void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (log < 1 || log > kMaxTailLog + 1 || reinterpret_cast<uintptr_t>(prev) % 8 != 0)
+    return cudaErrorInvalidValue;
+  // two levels in shared memory: 8 * (2^(log-1) + 2^(log-2)) words
+  const size_t shared = 4 * ((static_cast<size_t>(8) << (log - 1)) +
+                             (log >= 2 ? static_cast<size_t>(8) << (log - 2) : 0));
+  static size_t allowed = 48 * 1024;
+  if (shared > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merkle_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+    allowed = shared;
+  }
+  const int nodes = 1 << (log - 1);
+  const int threads = nodes < kTailThreads ? (nodes + 31) / 32 * 32 : kTailThreads;
+  merkle_tail_kernel<<<1, threads, shared, stream>>>(
+      reinterpret_cast<const uint32_t*>(prev), reinterpret_cast<uint32_t*>(out), log);
   return cudaGetLastError();
 }

@@ -8,9 +8,11 @@ a fresh checkout builds everything on first use and a later process
 reuses the library.  Importing this module needs neither CUDA nor nvcc.
 
 Each kernel counts its launches in `LAUNCHES`: the wrappers in ops/fft.py
-(forward and inverse CFFT apart), ops/blake2s.py, ops/fri_ops.py and
-ops/m31_kernels.py add one per call of the C entry point, and nowhere
-else.
+(forward and inverse CFFT apart), ops/blake2s.py (a layer of messages
+without children as `blake2s`, a Merkle layer that reads its child pairs
+as `merkle_layer`, the one-block top of a tree as `merkle_tail`),
+ops/fri_ops.py and ops/m31_kernels.py add one per call of the C entry
+point, and nowhere else.
 """
 from __future__ import annotations
 
@@ -36,9 +38,11 @@ _VP = ctypes.c_void_p
 _SIGNATURES = {
     # src, dst, twiddles, batch, log_n, inverse, stream
     "tstwo_cfft": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP),
-    # words, out, n_blocks, n, byte_len, stream
-    "tstwo_blake2s": (_VP, _VP, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_longlong, _VP),
+    # prev, seg_ptrs, seg_strides, seg_rows, n_segs, out, n, byte_len, stream
+    "tstwo_blake2s_layer": (_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
+                            ctypes.c_longlong, ctypes.c_longlong, _VP),
+    # prev, out, log, stream
+    "tstwo_merkle_tail": (_VP, _VP, ctypes.c_int, _VP),
     # src, even, odd, pairs, stream
     "tstwo_deinterleave": (_VP, _VP, _VP, ctypes.c_longlong, _VP),
     # a, b, out, n, stream
@@ -49,9 +53,11 @@ _SIGNATURES = {
 }
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
-            "deinterleave": 0, "m31_mul": 0, "m31_mul_chain": 0}
+            "merkle_layer": 0, "merkle_tail": 0, "deinterleave": 0,
+            "m31_mul": 0, "m31_mul_chain": 0}
 
 _lib = None
+_entries: dict = {}  # entry name -> bound C function, filled by lib()
 BUILD_INFO: dict = {}
 
 
@@ -138,23 +144,44 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+            _entries[name.removeprefix("tstwo_")] = fn
         _lib = handle
     return _lib
 
 
+def _current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on device `index`."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # no Stream object is built on the way
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(entry: str, counter: str, device: torch.device, *args) -> None:
     """Call the C entry point tstwo_<entry> on `device`'s current stream,
-    raise if a launch failed, and count one launch under `counter`."""
-    fn = getattr(lib(), "tstwo_" + entry)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    raise if a launch failed, and count one launch under `counter`.
+
+    A launch is host work of a few microseconds around kernels that often
+    take less, so the function is looked up once (`lib()`), and the device
+    is switched only when it is not the current one."""
+    fn = _entries.get(entry)
+    if fn is None:
+        lib()
+        fn = _entries[entry]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _current_stream(index))
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     LAUNCHES[counter] += 1
 
 
-def check_cuda_tensor(t: torch.Tensor, name: str, dtype=torch.int32) -> None:
+def check_cuda_tensor(t: torch.Tensor, name: str, dtype=torch.int32,
+                      contiguous: bool = True) -> None:
     """Wrapper-side validation before a pointer crosses into C."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor")
@@ -162,16 +189,21 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype=torch.int32) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def on_cuda(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; any other device raises.
+def is_cuda(device: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU; any other device raises.
     The wrappers launch their kernel for CUDA and take the plain PyTorch
     version only for CPU tensors."""
-    if t.device.type == "cuda":
+    if device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if device.type == "cpu":
         return False
-    raise ValueError(f"unsupported device {t.device}")
+    raise ValueError(f"unsupported device {device}")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """`is_cuda` of the device a tensor lies on."""
+    return is_cuda(t.device)

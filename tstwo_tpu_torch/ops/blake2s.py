@@ -3,17 +3,26 @@
 Messages are given as u32 words with the batch on the minor axis:
 words[w, i] is word w of message i (int32 bit-views of u32 values), and
 digests come back the same way as [8, N].  A CUDA tensor goes through the
-hand-written kernel csrc/blake2s.cu; a CPU tensor through
-`hash_words_major_plain`, which computes in int64 and masks to 32 bits
-after every add and shift (torch's >> on a negative int32 is arithmetic).
+hand-written kernels of csrc/blake2s.cu; a CPU tensor through the plain
+versions, which compute in int64 and mask to 32 bits after every add and
+shift (torch's >> on a negative int32 is arithmetic).
+
+Three entry points, each with its `_cuda` and `_plain` version:
+`hash_words_major` (N messages from their words), `merkle_layer` (a Merkle
+layer from the child layer's pairs and the columns that join there, read
+where they lie: no deinterleave, concatenation or padding on the device)
+and `merkle_tail` (every small layer of a tree down to the root in one
+launch).
 
 Semantics: standard unkeyed blake2s-256, bit-exact with hashlib.blake2s.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import List, Optional, Sequence
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import kernels
 
@@ -83,46 +92,194 @@ def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_words_major_plain(words: torch.Tensor, byte_len: int) -> torch.Tensor:
-    """Plain PyTorch version on any device; words is [16 * n_blocks, N]."""
-    total, n = words.shape
-    n_blocks = total // 16
+    """Plain PyTorch version on any device; words is [W, N] with W at most
+    16 * n_blocks, the words past W zero."""
+    w, n = words.shape
+    n_blocks = _n_blocks(byte_len)
+    if w > 16 * n_blocks:
+        raise ValueError("more words than the blocks of byte_len hold")
     wd = words.to(torch.int64) & _MASK
-    h = [torch.full((n,), int(w), dtype=torch.int64, device=words.device)
-         for w in H0]
+    zero = torch.zeros((n,), dtype=torch.int64, device=words.device)
+    h = [torch.full((n,), int(iv), dtype=torch.int64, device=words.device)
+         for iv in H0]
     for b in range(n_blocks):
         final = b == n_blocks - 1
         t = byte_len if final else (b + 1) * 64
-        h = _compress_rows(h, [wd[16 * b + i] for i in range(16)], t, final)
+        m = [wd[16 * b + i] if 16 * b + i < w else zero for i in range(16)]
+        h = _compress_rows(h, m, t, final)
     return _as_int32_bits(torch.stack(h))
 
 
-def hash_words_major_cuda(words: torch.Tensor, byte_len: int) -> torch.Tensor:
-    """Launch csrc/blake2s.cu on contiguous CUDA int32 words [16 * n_blocks, N]."""
-    kernels.check_cuda_tensor(words, "words")
-    total, n = words.shape
-    if total == 0 or total % 16:
-        raise ValueError("words must hold whole 16-word blocks")
-    out = torch.empty((8, n), dtype=torch.int32, device=words.device)
+def _n_blocks(byte_len: int) -> int:
+    return max(1, -(-byte_len // 64))
+
+
+# csrc/blake2s.cu: kMaxSegments, kMaxTailLog
+MAX_SEGMENTS = 16
+MAX_TAIL_LOG = 12
+# A layer of at most 2^TAIL_LOG nodes is hashed by the one-block tail
+# kernel, with every layer above it, in one launch (see `merkle_tail`).
+# One block on one SM hashes a level of 2^11 nodes in ~14 us where a launch
+# over the card takes ~3 us, but each launch saved is 15-25 us of the
+# enqueueing thread, which is what a prove waits for; measure_merkle.py
+# times both for every first level.
+TAIL_LOG = 11
+
+_SegPtrs = ctypes.c_void_p * MAX_SEGMENTS
+_SegStrides = ctypes.c_longlong * MAX_SEGMENTS
+_SegRows = ctypes.c_int * MAX_SEGMENTS
+
+
+def _launch_layer(prev: Optional[torch.Tensor], entries: Sequence[torch.Tensor],
+                  n: int, byte_len: int, counter: str,
+                  device) -> torch.Tensor:
+    """One launch of csrc/blake2s.cu's layer kernel over n messages: the
+    child pairs of `prev` [8, 2n] if given, then the rows of `entries` ([n]
+    or [C, n] CUDA int32 tensors) read where they lie."""
+    if prev is not None:
+        kernels.check_cuda_tensor(prev, "prev")
+        if tuple(prev.shape) != (8, 2 * n):
+            raise ValueError(f"prev: expected [8, {2 * n}], got "
+                             f"{tuple(prev.shape)}")
+        if prev.data_ptr() % 8:
+            prev = prev.clone()  # the kernel loads 8-byte child pairs
+    segs = []
+    for c in entries:
+        if c.ndim == 1:
+            c = c[None, :]
+        if c.ndim != 2 or c.shape[1] != n:
+            raise ValueError(f"column entry: expected [{n}] or [C, {n}], got "
+                             f"{tuple(c.shape)}")
+        if c.device != device or c.dtype != torch.int32:
+            raise TypeError(f"column entry: expected int32 on {device}, got "
+                            f"{c.dtype} on {c.device}")
+        if n > 1 and c.stride(1) != 1:
+            c = c.contiguous()
+        if c.shape[0]:
+            segs.append(c)
+    if len(segs) > MAX_SEGMENTS:
+        segs = [torch.cat(segs, dim=0)]
+    rows = sum(c.shape[0] for c in segs) + (16 if prev is not None else 0)
+    if rows > 16 * _n_blocks(byte_len):
+        raise ValueError("more words than the blocks of byte_len hold")
+    out = torch.empty((8, n), dtype=torch.int32, device=device)
     if n:
-        kernels.launch("blake2s", "blake2s", words.device, words.data_ptr(),
-                       out.data_ptr(), total // 16, n, byte_len)
+        table = (_SegPtrs(*[c.data_ptr() for c in segs]),
+                 _SegStrides(*[c.stride(0) for c in segs]),
+                 _SegRows(*[c.shape[0] for c in segs])
+                 ) if segs else (None, None, None)
+        kernels.launch("blake2s_layer", counter, device,
+                       None if prev is None else prev.data_ptr(), *table,
+                       len(segs), out.data_ptr(), n, byte_len)
     return out
+
+
+def hash_words_major_cuda(words: torch.Tensor, byte_len: int) -> torch.Tensor:
+    """Launch csrc/blake2s.cu on CUDA int32 words [W, N], W at most 16 *
+    n_blocks: every word given is hashed, the words past W are zero.  Rows
+    may lie a stride apart."""
+    kernels.check_cuda_tensor(words, "words", contiguous=False)
+    if words.ndim != 2:
+        raise ValueError("words must be [W, N]")
+    return _launch_layer(None, [words], words.shape[1], byte_len, "blake2s",
+                         words.device)
 
 
 def hash_words_major(words: torch.Tensor, byte_len: int) -> torch.Tensor:
     """blake2s-256 of N messages given word-major as [W, N] LE words.
 
-    W*4 >= byte_len (extra words must be zero).  Returns int32 [8, N]
-    digest words."""
-    w, n = words.shape
-    n_blocks = max(1, -(-byte_len // 64))
-    total = n_blocks * 16
-    if w < total:
-        words = F.pad(words, (0, 0, 0, total - w))
-    words = words[:total]
+    W*4 >= byte_len; words and bytes past byte_len must be zero (they are
+    not read).  Returns int32 [8, N] digest words."""
+    words = words[:-(-byte_len // 4)]
     if kernels.on_cuda(words):
-        return hash_words_major_cuda(words.contiguous(), byte_len)
+        return hash_words_major_cuda(words, byte_len)
     return hash_words_major_plain(words, byte_len)
+
+
+def merkle_layer_plain(prev: Optional[torch.Tensor],
+                       columns: Sequence[torch.Tensor], n: int = 1,
+                       device="cpu") -> torch.Tensor:
+    """One Merkle layer in plain PyTorch, on any device: the even/odd split
+    of the child layer, a concatenation with the column rows, the hash.
+    `n` and `device` are read only when there is neither prev nor column."""
+    parts = []
+    if prev is not None:
+        parts += [prev[:, 0::2], prev[:, 1::2]]
+    parts += [c if c.ndim == 2 else c[None, :] for c in columns]
+    if parts:
+        words = torch.cat(parts, dim=0)
+    else:
+        words = torch.zeros((0, n), dtype=torch.int32, device=device)
+    return hash_words_major_plain(words, 4 * words.shape[0])
+
+
+def merkle_layer_cuda(prev: Optional[torch.Tensor],
+                      columns: Sequence[torch.Tensor], n: int = 1,
+                      device=None) -> torch.Tensor:
+    """One Merkle layer in one launch of csrc/blake2s.cu (counted as
+    `merkle_layer` when it reads child pairs, else as `blake2s`)."""
+    if prev is not None:
+        n, device = prev.shape[1] // 2, prev.device
+    elif columns:
+        n, device = columns[0].shape[-1], columns[0].device
+    rows = sum(c.shape[0] if c.ndim == 2 else 1 for c in columns)
+    byte_len = 4 * (rows + (16 if prev is not None else 0))
+    return _launch_layer(prev, columns, n, byte_len,
+                         "blake2s" if prev is None else "merkle_layer",
+                         torch.device(device))
+
+
+def merkle_layer(prev: Optional[torch.Tensor],
+                 columns: Sequence[torch.Tensor], n: int = 1,
+                 device="cpu") -> torch.Tensor:
+    """node i = blake2s(prev[:, 2i] || prev[:, 2i+1] || column values at i).
+
+    prev: int32 [8, 2n] digest words of the child layer, or None at a leaf
+    layer.  columns: entries [n] or [C, n], hashed in order.  With neither,
+    n hashes of the empty message on `device`.  Returns int32 [8, n]."""
+    first = prev if prev is not None else (columns[0] if columns else None)
+    device = torch.device(device) if first is None else first.device
+    if kernels.is_cuda(device):
+        return merkle_layer_cuda(prev, columns, n, device)
+    return merkle_layer_plain(prev, columns, n, device)
+
+
+def merkle_tail_plain(prev: torch.Tensor) -> List[torch.Tensor]:
+    """The layers above prev [8, 2^log], from 2^(log-1) nodes down to the
+    root, in plain PyTorch: a loop of `merkle_layer_plain`."""
+    layers = []
+    while prev.shape[1] > 1:
+        prev = merkle_layer_plain(prev, [])
+        layers.append(prev)
+    return layers
+
+
+def merkle_tail_cuda(prev: torch.Tensor) -> List[torch.Tensor]:
+    """The same layers in one launch of csrc/blake2s.cu's one-block tail
+    kernel; they are column slices of one [8, 2^log - 1] buffer, side by
+    side and largest first, so their rows are not contiguous."""
+    kernels.check_cuda_tensor(prev, "prev")
+    log = int(prev.shape[1]).bit_length() - 1
+    if prev.ndim != 2 or prev.shape[0] != 8 or prev.shape[1] != 1 << log:
+        raise ValueError(f"prev: expected [8, 2^log], got {tuple(prev.shape)}")
+    if not 1 <= log <= MAX_TAIL_LOG + 1:
+        raise ValueError(f"the tail takes 2 to 2^{MAX_TAIL_LOG + 1} child "
+                         f"nodes, got 2^{log}")
+    if prev.data_ptr() % 8:
+        prev = prev.clone()  # the kernel loads 8-byte child pairs
+    out = torch.empty((8, (1 << log) - 1), dtype=torch.int32,
+                      device=prev.device)
+    kernels.launch("merkle_tail", "merkle_tail", prev.device, prev.data_ptr(),
+                   out.data_ptr(), log)
+    return list(out.split([1 << j for j in range(log - 1, -1, -1)], dim=1))
+
+
+def merkle_tail(prev: torch.Tensor) -> List[torch.Tensor]:
+    """Every layer above prev [8, 2^log] that takes in no column, largest
+    first: node i of each is blake2s(left || right) of the layer below."""
+    if kernels.on_cuda(prev):
+        return merkle_tail_cuda(prev)
+    return merkle_tail_plain(prev)
 
 
 def digest_words_to_bytes(words) -> bytes:

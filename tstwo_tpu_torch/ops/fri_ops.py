@@ -5,9 +5,13 @@ inverse twiddles plus an alpha-linear combination (reference fri.ts:120-192,
 backend/cpu/fri.ts:23-92).  Values are QM31 SoA tensors [4, n] in
 bit-reversed order; adjacent pairs are (p, -p) cosets.
 
-`_deinterleave` -- the even/odd split every fold and Merkle level uses --
-launches the hand-written kernel csrc/deinterleave.cu for a CUDA tensor
-and takes `deinterleave_plain` for a CPU one.
+`_deinterleave` -- the even/odd split of every fold, `decompose` sum and
+GKR halving -- launches the hand-written kernel csrc/deinterleave.cu for a
+CUDA tensor and takes `deinterleave_plain` for a CPU one.  (A Merkle layer
+reads its child pairs itself, ops/blake2s.py.)  The plain version returns
+views that the next elementwise op reads in place; the kernel's halves are
+contiguous, a pass through memory the plain code never makes, which only
+a kernel fused with the fold can save.
 """
 from __future__ import annotations
 
@@ -27,21 +31,22 @@ def deinterleave_plain(x: torch.Tensor):
 
 def deinterleave_cuda(x: torch.Tensor):
     """Launch csrc/deinterleave.cu on a contiguous CUDA int32 tensor whose
-    last axis is even; returns contiguous (even, odd)."""
+    last axis is even; returns contiguous (even, odd), the two halves of
+    one allocation."""
     kernels.check_cuda_tensor(x, "x")
     n = x.shape[-1]
     if n % 2:
         raise ValueError("the last axis must have even length")
     if x.data_ptr() % 8:
         x = x.clone()  # the kernel loads 8-byte pairs
-    lead = x.shape[:-1]
-    even = torch.empty((*lead, n // 2), dtype=x.dtype, device=x.device)
-    odd = torch.empty_like(even)
+    out = torch.empty((2, *x.shape[:-1], n // 2), dtype=x.dtype,
+                      device=x.device)
     pairs = x.numel() // 2
     if pairs:
+        ptr = out.data_ptr()
         kernels.launch("deinterleave", "deinterleave", x.device, x.data_ptr(),
-                       even.data_ptr(), odd.data_ptr(), pairs)
-    return even, odd
+                       ptr, ptr + 4 * pairs, pairs)
+    return out.unbind(0)
 
 
 def _deinterleave(x: torch.Tensor):

@@ -61,6 +61,7 @@ class CommitmentTreeProver:
                  channel, twiddles: TwiddleTree, device):
         self.polynomials = polynomials
         self.evaluations: List[CircleEvaluation] = [None] * len(polynomials)
+        stacks: List[torch.Tensor] = []
         with span("extension"):
             # all same-size polynomials extend in one batched CFFT
             groups: Dict[int, List[int]] = {}
@@ -71,14 +72,13 @@ class CommitmentTreeProver:
                     log_size + log_blowup_factor).circle_domain()
                 stacked = torch.stack([polynomials[i].coeffs for i in idxs])
                 ext = evaluate_values(stacked, domain, twiddles)
+                stacks.append(ext)
                 for k, i in enumerate(idxs):
                     self.evaluations[i] = CircleEvaluation(domain, ext[k])
         with span("merkle"):
-            if self.evaluations:
-                self.commitment = MerkleProver.commit(
-                    [ev.values for ev in self.evaluations])
-            else:
-                self.commitment = MerkleProver.commit([], device)
+            # one [C, n] entry per size: the tree hashes same-size columns
+            # in index order, which is the order of each stack's rows
+            self.commitment = MerkleProver.commit(stacks, device)
         channel.mix_root(self.commitment.root())
 
     def decommit(self, queries: Dict[int, List[int]]):

@@ -10,13 +10,40 @@ GrandProduct and one LogUpGeneric instance of 2^log_n random values each.
 After one warm prove it runs two more: one under synchronised tracing
 spans (host wall time per prover phase, device work included), and one
 under torch.profiler (device time by kernel, and the device's busy share
-of the prove's wall time).  Prints one JSON object.  Needs a CUDA device.
+of the prove's wall time).  It also counts, per warm prove, the launches
+of each hand kernel (`kernels.LAUNCHES`), in all and inside
+`MerkleProver.commit`, and from the profile the `cat`, `pad`,
+`contiguous` and `clone` calls made inside `MerkleProver.commit` with
+their device time, and the span of those commits on the device's timeline
+(first to last kernel of each).  Prints one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+
+
+COMMIT_RANGE = "MerkleProver.commit"
+GLUE_OPS = ("aten::cat", "aten::pad", "aten::contiguous", "aten::clone")
+HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle")
+
+
+def ops_inside(events, range_name: str, op_names) -> dict:
+    """Calls of the CPU ops `op_names` that start inside a profiler range
+    called `range_name`, with the device time of what they launched:
+    {op: {"calls": n, "device_ms": t}}."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.thread)
+                   for e in events if e.name == range_name)
+    out = {name: {"calls": 0, "device_ms": 0.0} for name in op_names}
+    for e in events:
+        if e.name not in out:
+            continue
+        at = e.time_range.start
+        if any(s <= at <= t and thread == e.thread for s, t, thread in spans):
+            out[e.name]["calls"] += 1
+            out[e.name]["device_ms"] += e.device_time_total / 1e3
+    return out
 
 
 def main(argv=None) -> None:
@@ -29,14 +56,15 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from . import tracing
+    from . import kernels, tracing
     from .channel.blake2s import Blake2sChannel
     from .examples.logup_lookup import prove_logup_lookup
     from .examples.wide_fibonacci import prove_wide_fibonacci
     from .lookups.gkr import GRAND_PRODUCT, LOGUP_GENERIC, Layer, prove_batch
     from .lookups.mle import Mle
+    from .vcs.prover import MerkleProver
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove needs a CUDA device")
@@ -64,8 +92,27 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    # every Merkle commit of the prove runs under a profiler range, and its
+    # hand-kernel launches are counted apart
+    commit = MerkleProver.commit
+    in_commit = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def counted_commit(*a, **kw):
+        before = dict(kernels.LAUNCHES)
+        with record_function(COMMIT_RANGE):
+            tree = commit(*a, **kw)
+        for name, count in kernels.LAUNCHES.items():
+            in_commit[name] = in_commit.get(name, 0) + count - before[name]
+        return tree
+
+    MerkleProver.commit = staticmethod(counted_commit)
+
     warm_s = prove()
+    kernels.reset_launches()
+    in_commit = dict.fromkeys(kernels.LAUNCHES, 0)
     plain_s = prove()
+    launches = dict(kernels.LAUNCHES)
+    launches_in_commit = dict(in_commit)
 
     tracing.reset()
     tracing.enable()
@@ -80,12 +127,20 @@ def main(argv=None) -> None:
         profiled_s = prove()
     # device-side events only (a launching CPU op also reports the time of
     # the kernels it launched)
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0]
-    device_us = sum(t for _, t, _ in kernels)
-    kernels.sort(key=lambda k: -k[1])
+    # (the commit range also has a device-side event, first to last kernel
+    # of each commit: reported apart, it is no kernel)
+    averages = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0]
+    commit_span_us = sum(e.self_device_time_total for e in averages
+                         if e.key == COMMIT_RANGE)
+    by_kernel = [(e.key, e.self_device_time_total, e.count)
+                 for e in averages if e.key != COMMIT_RANGE]
+    device_us = sum(t for _, t, _ in by_kernel)
+    by_kernel.sort(key=lambda k: -k[1])
+    hand = [{"name": name[:60], "ms": t / 1e3, "calls": n}
+            for name, t, n in by_kernel
+            if any(tag in name for tag in HAND_KERNEL_TAGS)]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "path": args.path,
@@ -98,7 +153,13 @@ def main(argv=None) -> None:
         "profiled_device_busy_share": device_us / 1e6 / profiled_s,
         "top_device_kernels": [
             {"name": name[:90], "ms": t / 1e3, "calls": n}
-            for name, t, n in kernels[:args.top]],
+            for name, t, n in by_kernel[:args.top]],
+        "hand_kernels_profiled": hand,
+        "launches_per_prove": launches,
+        "launches_in_merkle_commit": launches_in_commit,
+        "merkle_commit_device_span_ms": commit_span_us / 1e3,
+        "ops_in_merkle_commit": ops_inside(prof.events(), COMMIT_RANGE,
+                                           GLUE_OPS),
     }, indent=1))
 
 

@@ -6,7 +6,7 @@ node = blake2s(left || right || LE32(column values))
 from __future__ import annotations
 
 import hashlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,21 +33,11 @@ def commit_on_layer(log_size: int, prev_layer: Optional[torch.Tensor],
     prev_layer: int32 [8, 2^(log+1)] digest words (word-major) of the child
     layer, or None at the leaf layer.  columns: entries of length 2^log,
     each a single column [n] or a stack [C, n] of C columns, hashed in
-    order.  Returns int32 [8, 2^log].
+    order.  Returns int32 [8, 2^log].  On a CUDA device this is one launch
+    (ops/blake2s.merkle_layer): the kernel reads the child pairs and the
+    column rows where they lie.
     """
-    n = 1 << log_size
-    parts: List[torch.Tensor] = []
-    if prev_layer is not None:
-        from ..ops.fri_ops import _deinterleave
-
-        # message = left digest (8 words) || right digest (8 words)
-        parts.extend(_deinterleave(prev_layer))
-    parts.extend(c if c.ndim == 2 else c[None, :] for c in columns)
-    if parts:
-        words = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
-    else:
-        words = torch.zeros((0, n), dtype=torch.int32, device=device)
-    return b2.hash_words_major(words, byte_len=4 * int(words.shape[0]))
+    return b2.merkle_layer(prev_layer, columns, 1 << log_size, device)
 
 
 class Blake2sMerkleChannel:

@@ -15,7 +15,7 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..fields import M31
-from ..ops.blake2s import digest_words_to_bytes
+from ..ops.blake2s import TAIL_LOG, digest_words_to_bytes, merkle_tail
 from ..utils import to_numpy_u32
 from .blake2s_merkle import commit_on_layer
 from .utils import Peekable, next_decommitment_node
@@ -101,7 +101,9 @@ def _to_host(parts: Sequence[torch.Tensor]):
 
 class MerkleProver:
     """Multi-column Merkle tree (one commit_on_layer per log size,
-    leaves->root).  layers[log] is the word-major int32 [8, 2^log] layer."""
+    leaves->root, then one merkle_tail for the layers of at most
+    2^TAIL_LOG nodes once no column remains to join).  layers[log] is the
+    word-major int32 [8, 2^log] layer."""
 
     def __init__(self, layers: List[torch.Tensor]):
         self.layers = layers
@@ -117,12 +119,18 @@ class MerkleProver:
             return MerkleProver([commit_on_layer(0, None, [],
                                                  device or "cpu")])
         max_log = int(cols[0].shape[-1]).bit_length() - 1
+        min_log = int(cols[-1].shape[-1]).bit_length() - 1
         layers: List[Optional[torch.Tensor]] = [None] * (max_log + 1)
         prev = None
         for log in range(max_log, -1, -1):
             layer_cols = [c for c in cols if c.shape[-1] == 1 << log]
             prev = commit_on_layer(log, prev, layer_cols)
             layers[log] = prev
+            if 1 <= log <= min(min_log, TAIL_LOG + 1):
+                # every layer above is small and takes in no column: one
+                # call hashes them all, down to the root
+                layers[:log] = reversed(merkle_tail(prev))
+                break
         return MerkleProver(layers)
 
     def root(self) -> bytes:
