@@ -32,7 +32,15 @@ PyTorch version and `library_ms` (`library_host_us`) the PyTorch call for
 the same function, where one exists, timed the same way; `bound_ms` the least time the card
 could take, the larger of the bytes moved once over HBM_BYTES_PER_S and
 the integer operations over INT32_OPS_PER_S, and `bound_by` which of the
-two; `launches` the count from the path that runs the kernel.
+two; `launches` the count from the path that runs the kernel.  A CFFT row
+also has `passes`, the kernel launches of one transform (checked against
+`ops.fft.cfft_plan` and the limits 1 / 2 / 3 up to 2^11 / 2^22 / 2^30
+points), and `columns_per_block`, the columns of the batch a block of each
+pass walks over with its twiddles in registers.  A forward CFFT from a
+coefficient length m < n is bound by what that function needs: m words
+read a column and log2(m) layers of butterflies (the layers above only
+copy); `bound_full_n_ms` is the bound of the full transform of n points
+beside it, the same whatever implements the zero-extension.
 """
 from __future__ import annotations
 
@@ -124,7 +132,7 @@ def compare_kernels(device):
     rows = []
 
     def check(name, shape, kernel, plain, source, n_bytes, n_ops,
-              library=None):
+              library=None, extra=None):
         """One row: `kernel` against `plain` (exact), both timed; the
         bound from the bytes the function must move and the integer
         operations it must do."""
@@ -149,7 +157,8 @@ def compare_kernels(device):
               f"{timing['host_us']:.1f} us), plain {plain_ms:.4f} ms"
               + (f", library {library_ms:.4f} ms (host "
                  f"{lib_t['host_us']:.1f} us)" if library else "")
-              + f", bound {bound_ms:.4f} ms")
+              + f", bound {bound_ms:.4f} ms"
+              + "".join(f", {k} {v}" for k, v in (extra or {}).items()))
         if err != 0:
             fail(f"{name} {shape} disagrees with its plain version")
         rows.append({"name": name, "shape": shape, "route": "cuda",
@@ -161,29 +170,79 @@ def compare_kernels(device):
                      "bound_by": "bytes" if by_bytes >= by_ops
                      else "operations",
                      "library_ms": library_ms,
-                     "library_host_us": lib_t["host_us"]})
+                     "library_host_us": lib_t["host_us"], **(extra or {})})
 
     # wide Fibonacci 2^16 x 32: extension, composition, interpolation; the
-    # block-resident stage alone.  LogUp 2^20: extensions of 1, 2 and 4
-    # columns, the composition, interpolations of the trace and the
-    # composition.
-    for name, (batch, log_n), inverse, twiddles in [
-            ("cfft_forward", (32, 17), False, tree),
-            ("cfft_forward", (4, 18), False, tree),
-            ("cfft_inverse", (32, 16), True, tree),
-            ("cfft_block_resident", (32, 10), False, tree),
-            ("cfft_forward", (1, 21), False, tree22),
-            ("cfft_forward", (4, 21), False, tree22),
-            ("cfft_forward", (4, 22), False, tree22),
-            ("cfft_inverse", (4, 20), True, tree22),
-            ("cfft_inverse", (4, 21), True, tree22)]:
-        x = rand((batch, 1 << log_n))
-        line, circle, buf = twiddles.fft_twiddles(log_n, inverse, device)
-        check(name, f"[{batch},2^{log_n}]",
-              lambda: fft.cfft_cuda(x, buf, log_n, inverse),
-              lambda: fft.fft_plain(x, line, circle, inverse), "cfft.cu",
-              n_bytes=4 * (2 * x.numel() + (1 << log_n)),
-              n_ops=BUTTERFLY_OPS * batch * (1 << (log_n - 1)) * log_n)
+    # one-pass transform alone, at 10 and at 6 layers.  LogUp 2^20:
+    # extensions of 1, 2 and 4 columns, the composition, interpolations of
+    # the trace and the composition.  Then the calls as the proves really
+    # make them, with the coefficient length m (zero-extended inside the
+    # kernel) and the 1/N scale: wide Fibonacci 2^18 x 64 (trace
+    # interpolation, extension, the composition's pair) and LogUp 2^20.
+    # Last the three-pass plan, at 2^24 points under random twiddles.
+    for name, (batch, log_n), log_m, scaled, twiddles in [
+            ("cfft_forward", (32, 17), 17, False, tree),
+            ("cfft_forward", (4, 18), 18, False, tree),
+            ("cfft_inverse", (32, 16), 16, False, tree),
+            ("cfft_block_resident", (32, 10), 10, False, tree),
+            ("cfft_block_resident", (32, 6), 6, False, tree),
+            ("cfft_forward", (1, 21), 21, False, tree22),
+            ("cfft_forward", (4, 21), 21, False, tree22),
+            ("cfft_forward", (4, 22), 22, False, tree22),
+            ("cfft_inverse", (4, 20), 20, False, tree22),
+            ("cfft_inverse", (4, 21), 21, False, tree22),
+            ("cfft_inverse", (64, 18), 18, True, tree22),
+            ("cfft_forward", (64, 19), 18, False, tree22),
+            ("cfft_inverse", (4, 19), 19, True, tree22),
+            ("cfft_forward", (4, 20), 19, False, tree22),
+            ("cfft_inverse", (4, 20), 20, True, tree22),
+            ("cfft_forward", (1, 21), 20, False, tree22),
+            ("cfft_forward", (4, 21), 20, False, tree22),
+            ("cfft_inverse", (4, 21), 21, True, tree22),
+            ("cfft_forward", (4, 22), 21, False, tree22),
+            ("cfft_forward", (2, 24), 24, False, None),
+            ("cfft_inverse", (2, 24), 24, True, None)]:
+        inverse = name == "cfft_inverse"
+        n, m = 1 << log_n, 1 << log_m
+        x = rand((batch, m))
+        scale = pow(n, P - 2, P) if scaled else None
+        if twiddles is None:
+            circle = rand(n // 2)
+            line = [rand(n >> (l + 1)) for l in range(1, log_n)]
+            buf = fft.twiddle_buffer(line, circle)
+        else:
+            line, circle, buf = twiddles.fft_twiddles(log_n, inverse, device)
+        # the passes the library launches against the plan the tests pin,
+        # and the kernel launches one call really makes
+        passes = fft.cfft_kernel_plan(batch, log_n, inverse)
+        before = fft.cfft_kernel_launches()
+        fft.cfft_cuda(x, buf, log_n, inverse, scale, m)
+        made = fft.cfft_kernel_launches() - before
+        want = fft.cfft_plan(log_n, inverse)
+        limit = 1 if log_n <= 11 else 2 if log_n <= 22 else 3
+        if [p[:4] for p in passes] != want or made != len(want) \
+                or made > limit:
+            fail(f"{name} [{batch},2^{log_n}]: {made} kernel launches, "
+                 f"library plan {passes}, cfft_plan {want}")
+        cols = [p[4] for p in passes]
+
+        def plain():
+            full = x if m == n else torch.nn.functional.pad(x, (0, n - m))
+            return fft.fft_plain(full, line, circle, inverse, scale)
+
+        check(name, f"[{batch},2^{log_n}]"
+              + (f" from m=2^{log_m}" if m != n else "")
+              + (" scaled" if scaled else ""),
+              lambda: fft.cfft_cuda(x, buf, log_n, inverse, scale, m),
+              plain, "cfft.cu",
+              n_bytes=4 * (batch * m + batch * n + n),
+              n_ops=BUTTERFLY_OPS * batch * (n >> 1) * log_m,
+              extra={"passes": made, "columns_per_block": cols,
+                     "bound_full_n_ms": max(
+                         4 * (2 * batch * n + n) / HBM_BYTES_PER_S,
+                         BUTTERFLY_OPS * batch * (n >> 1) * log_n
+                         / INT32_OPS_PER_S) * 1e3})
+        del x, line, circle, buf
 
     def hash_cost(n, byte_len, words_read):
         """(bytes, operations) of n hashes of byte_len-byte messages that
@@ -282,6 +341,11 @@ def compare_kernels(device):
             fail(f"m31_mul edge values N={n}")
     phase("kernel m31 edge values N=1,1000,4097", time.perf_counter() - t0,
           "m31_mul and m31_mul_chain (reps 0, 1, 8) exact")
+    # the proves below share these twiddle trees: drop the device copies
+    # the rows above cached on them, so that a prove's peak memory holds
+    # only what the prove itself puts on the card
+    for twiddles in (tree, tree22):
+        twiddles.drop_device_copies()
     return rows
 
 
@@ -385,7 +449,7 @@ def main() -> None:
     counts = {
         "cfft_forward": launches["cfft_forward"],
         "cfft_inverse": launches["cfft_inverse"],
-        # the block-resident stage runs in every CFFT launch
+        # the contiguous pass (fft_fused's work) runs in every transform
         "cfft_block_resident": launches["cfft_forward"]
         + launches["cfft_inverse"],
         "blake2s": launches["blake2s"],

@@ -19,7 +19,7 @@ LOG_N = 4
 
 @pytest.fixture(scope="module")
 def proofs():
-    ours = basic_air.prove_basic_air(LOG_N)
+    ours = basic_air.prove_basic_air(LOG_N, device="cpu")
     theirs = jax_basic_air.prove_basic_air(LOG_N)
     return ours, theirs
 

@@ -36,18 +36,115 @@ def _exact(got, want):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+def _cfft_case(rng, batch, log_n, device, log_m=None):
+    """Random values [batch, 2^log_m] and any (random) twiddles."""
+    n = 1 << log_n
+    x = _rand(rng, (batch, n if log_m is None else 1 << log_m), device)
+    circle = _rand(rng, (n // 2,), device)
+    line = [_rand(rng, (n >> (l + 1),), device) for l in range(1, log_n)]
+    return x, line, circle
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("log_n", [1, 2, 3, 5, 10, 11, 12, 13, 15])
 def test_cfft_kernel_matches_plain(device, log_n, inverse):
-    """Any twiddles: the kernel's butterfly schedule, block/global split
-    (2^11 chunks) and buffer offsets against the layered plain version."""
+    """Any twiddles: the kernel's windows, its contiguous/strided split
+    and buffer offsets against the layered plain version."""
     rng = np.random.default_rng(log_n)
-    n = 1 << log_n
-    x = _rand(rng, (3, n), device)
-    circle = _rand(rng, (n // 2,), device)
-    line = [_rand(rng, (n >> (l + 1),), device) for l in range(1, log_n)]
+    x, line, circle = _cfft_case(rng, 3, log_n, device)
     got = fft.cfft_cuda(x, fft.twiddle_buffer(line, circle), log_n, inverse)
     _exact(got, fft.fft_plain(x, line, circle, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch,log_n", [
+    (2, 16), (2, 18), (2, 20), (1, 21), (1, 22), (1, 24),
+    (1, 12), (3, 12), (5, 12), (65, 12), (1, 14), (3, 14), (5, 14), (65, 14),
+    (1, 4), (5, 7), (65, 9), (300, 3)])
+def test_cfft_kernel_matches_plain_at_every_pass_count(device, batch, log_n,
+                                                       inverse):
+    """One, two and three passes; odd batches (a block walks over several
+    columns, the last block over fewer); tiles that hold whole columns.
+    The input is left as it was."""
+    rng = np.random.default_rng(100 * log_n + batch)
+    x, line, circle = _cfft_case(rng, batch, log_n, device)
+    before = x.clone()
+    buf = fft.twiddle_buffer(line, circle)
+    before_launches = fft.cfft_kernel_launches()
+    got = fft.cfft_cuda(x, buf, log_n, inverse)
+    assert fft.cfft_kernel_launches() - before_launches \
+        == len(fft.cfft_plan(log_n, inverse))
+    assert [p[:4] for p in fft.cfft_kernel_plan(batch, log_n, inverse)] \
+        == fft.cfft_plan(log_n, inverse)
+    _exact(got, fft.fft_plain(x, line, circle, inverse))
+    _exact(x, before)
+
+
+@pytest.mark.parametrize("shrink", [0, 1, 2, 3])
+@pytest.mark.parametrize("batch,log_n", [(3, 3), (3, 8), (5, 12), (3, 14),
+                                         (2, 17), (1, 21), (1, 23)])
+def test_cfft_forward_zero_extends_inside_the_kernel(device, batch, log_n,
+                                                     shrink):
+    """Coefficient lengths n, n/2, n/4, n/8 against the padded plain
+    version; the short input is read, never written."""
+    rng = np.random.default_rng(10 * log_n + shrink)
+    x, line, circle = _cfft_case(rng, batch, log_n, device, log_n - shrink)
+    before = x.clone()
+    got = fft.cfft_cuda(x, fft.twiddle_buffer(line, circle), log_n, False,
+                        coeff_len=1 << (log_n - shrink))
+    padded = torch.nn.functional.pad(x, (0, (1 << log_n) - x.shape[-1]))
+    _exact(got, fft.fft_plain(padded, line, circle, False))
+    _exact(x, before)
+    # the dispatching function infers the length from the tensor
+    _exact(fft.fft_natural_to_bitrev(x, line, circle), got)
+
+
+@pytest.mark.parametrize("scale", [1, P - 1, 0x12345678])
+@pytest.mark.parametrize("batch,log_n", [(3, 2), (3, 9), (5, 12), (3, 15),
+                                         (2, 20), (1, 23)])
+def test_cfft_inverse_scales_inside_the_kernel(device, batch, log_n, scale):
+    rng = np.random.default_rng(log_n + scale % 97)
+    x, line, circle = _cfft_case(rng, batch, log_n, device)
+    before = x.clone()
+    got = fft.cfft_cuda(x, fft.twiddle_buffer(line, circle), log_n, True,
+                        scale=scale)
+    _exact(got, fft.fft_plain(x, line, circle, True, scale))
+    _exact(x, before)
+    _exact(fft.ifft_bitrev_to_natural(x, line, circle, scale=scale), got)
+
+
+def test_cfft_kernel_takes_views(device):
+    """A contiguous view that is not 16-byte aligned (scalar loads), and a
+    strided one (copied by the dispatching function)."""
+    rng = np.random.default_rng(77)
+    log_n = 13
+    x, line, circle = _cfft_case(rng, 2, log_n, device)
+    buf = fft.twiddle_buffer(line, circle)
+    flat = torch.cat([x.reshape(-1)[:1], x.reshape(-1)])
+    view = flat[1:].view(2, 1 << log_n)
+    assert view.data_ptr() % 16
+    for inverse in (False, True):
+        want = fft.fft_plain(x, line, circle, inverse)
+        _exact(fft.cfft_cuda(view, buf, log_n, inverse), want)
+        wide = torch.stack([x, x], dim=-1)[..., 0]  # last axis stride 2
+        assert not wide.is_contiguous()
+        _exact(fft._transform(wide, line, circle, buf, inverse), want)
+
+
+def test_cfft_wrapper_guards(device):
+    rng = np.random.default_rng(5)
+    x, line, circle = _cfft_case(rng, 2, 6, device)
+    buf = fft.twiddle_buffer(line, circle)
+    with pytest.raises(ValueError, match="coefficient length"):
+        fft.cfft_cuda(x[:, :48].contiguous(), buf, 6, False, coeff_len=48)
+    with pytest.raises(ValueError, match="coefficient length"):
+        fft.cfft_cuda(x[:, :32].contiguous(), buf, 6, True, coeff_len=32)
+    with pytest.raises(ValueError, match="must end in"):
+        fft.cfft_cuda(x, buf, 6, False, coeff_len=32)
+    with pytest.raises(ValueError, match="scale"):
+        fft.cfft_cuda(x, buf, 6, False, scale=5)
+    with pytest.raises(ValueError, match="twiddle buffer"):
+        fft.cfft_cuda(x, buf[:-1], 6, False)
 
 
 @pytest.mark.parametrize("byte_len", [0, 4, 64, 100, 260])

@@ -73,7 +73,8 @@ def proofs():
         jax_proof, _, _ = jax_ll.prove_logup_lookup(log_size=LOG_PROOF,
                                                     pairs=pairs)
         proof, config, claimed = ll.prove_logup_lookup(log_size=LOG_PROOF,
-                                                       pairs=pairs)
+                                                       pairs=pairs,
+                                                       device="cpu")
         assert claimed.is_zero()
         out[pairs] = (jax_to_dict(jax_proof), proof_to_dict(proof), config)
     return out
@@ -167,7 +168,7 @@ def test_preprocessed_columns_match_jax(log):
 # -- assert_constraints ------------------------------------------------------
 
 def _trace_tree(log_size, pairs, mult_delta=0):
-    val_col, mult_col = ll.generate_trace(log_size)
+    val_col, mult_col = ll.generate_trace(log_size, device="cpu")
     if mult_delta:
         mult_col = m31.add(mult_col, mult_delta)
     rel = LookupElements.draw(Blake2sChannel(), 1)
@@ -194,7 +195,7 @@ def test_logup_constraints_fail_on_bad_multiplicities():
     assert not claimed.is_zero()  # unbalanced lookup is visible in the sum
     # the honest mult column with the bad interaction trace: the cumulative
     # constraints must break
-    trace_evals[1][1] = ll.generate_trace(LOG)[1]
+    trace_evals[1][1] = ll.generate_trace(LOG, device="cpu")[1]
     with pytest.raises(AssertionError):
         assert_constraints(trace_evals, LOG, ll.LookupEval(LOG, rel),
                            claimed)
@@ -231,7 +232,7 @@ def test_static_allocator_rejects_unknown_preprocessed():
 @pytest.mark.parametrize("mult_delta", [0, 1])
 @pytest.mark.parametrize("pairs", [True, False])
 def test_interaction_trace_matches_jax(pairs, mult_delta):
-    val_col, mult_col = ll.generate_trace(LOG)
+    val_col, mult_col = ll.generate_trace(LOG, device="cpu")
     jax_val, jax_mult = jax_ll.generate_trace(LOG)
     _equal(val_col, jax_val)
     _equal(mult_col, jax_mult)
@@ -327,7 +328,7 @@ def test_golden_fixture_is_the_jax_proof(proofs):
 
 
 def test_logup_lookup_rejects_tampered_proof():
-    proof, config, claimed = ll.prove_logup_lookup(log_size=LOG)
+    proof, config, claimed = ll.prove_logup_lookup(log_size=LOG, device="cpu")
     tree = proof.commitment_scheme_proof.sampled_values[2]
     orig = tree[0][0]
     tree[0][0] = orig + QM31.one()
@@ -341,15 +342,16 @@ def test_logup_lookup_prove_rejects_unsound_trace():
     """Multiplicities that do not match the values: as in the JAX package,
     prove() either fails its OODS sanity check or proves the unbalanced
     lookup with a nonzero claimed sum, which the verifier refuses."""
-    val_col, mult_col = ll.generate_trace(LOG)
+    val_col, mult_col = ll.generate_trace(LOG, device="cpu")
     with pytest.raises((ProvingError, ValueError)):
         proof, config, claimed = ll.prove_logup_lookup(
-            log_size=LOG, trace=(val_col, m31.add(mult_col, 1)))
+            log_size=LOG, trace=(val_col, m31.add(mult_col, 1)),
+            device="cpu")
         assert not claimed.is_zero()
         ll.verify_logup_lookup(proof, config, LOG, claimed)
 
 
 def test_verify_rejects_nonzero_claimed_sum():
-    proof, config, _ = ll.prove_logup_lookup(log_size=LOG)
+    proof, config, _ = ll.prove_logup_lookup(log_size=LOG, device="cpu")
     with pytest.raises(ValueError, match="must be zero"):
         ll.verify_logup_lookup(proof, config, LOG, QM31.one())

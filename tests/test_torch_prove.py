@@ -36,7 +36,8 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def port_run():
-    proof, component, config = wf.prove_wide_fibonacci(LOG_N, SEQ, seed=SEED)
+    proof, component, config = wf.prove_wide_fibonacci(LOG_N, SEQ, seed=SEED,
+                                                       device="cpu")
     return proof, component, config, proof_to_dict(proof)
 
 
@@ -45,7 +46,7 @@ def _json(d):
 
 
 def test_trace_matches_jax():
-    ours = wf.generate_trace(LOG_N, SEQ, seed=SEED)
+    ours = wf.generate_trace(LOG_N, SEQ, seed=SEED, device="cpu")
     theirs = jax_wf.generate_trace(LOG_N, SEQ, seed=SEED)
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(to_numpy_u32(a), np.asarray(b))

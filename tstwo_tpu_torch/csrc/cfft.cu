@@ -1,135 +1,179 @@
 // Circle FFT, forward and inverse, over a batch of M31 columns.
 //
 // Replaces tstwo_tpu/ops/pallas/fft_kernels.py::fft_large (its forward
-// _fft_large_impl and its inverse _ifft_large_u_impl) and ::fft_fused.
+// _fft_large_impl and its inverse _ifft_large_u_impl, with scale_n_inv) and
+// ::fft_fused.  It computes the layered transform of ops/fft.py::fft_plain
+// bit for bit: layer l pairs index i0 = h * 2^(l+1) + low with i0 + 2^l
+// under twiddle h; forward runs layers log_n-1 .. 0, inverse 0 .. log_n-1.
 //
-// What bounds it on the H100: device-memory bytes.  A butterfly is one
-// M31 multiply and two adds on 8 bytes read and 8 written, far below the
-// card's ratio of operations to bytes, so the cost is how many times the
-// column crosses device memory.  The design keeps that to a few passes:
-//   * block-resident stage: one thread block loads a 2^c chunk of one
-//     column into shared memory (8 KB), applies every layer with stride
-//     < 2^c there -- for a column of at most 2^c values that is the whole
-//     transform, fft_fused's job -- and writes it back: one pass;
-//   * global stage: each layer with stride >= 2^c is one launch with one
-//     thread per butterfly, neighbouring threads on neighbouring words.
-// Forward runs the global layers with decreasing stride, then the block
-// stage; inverse runs the block stage, then the global layers with
-// increasing stride (natural DIT order: the TPU's bit-reversed "u-space"
-// inverse was a Mosaic workaround and is not needed here).  The inverse
-// leaves out the 1/N scaling, as the JAX caller does.
+// What bounds it on the H100.  A butterfly is 16 integer instructions (one
+// M31 product, one modular add, one modular subtract) on 8 bytes read and 8
+// written.  With one pass over device memory for every layer the bytes
+// bound it; once a pass does ten or more layers on chip the integer
+// instructions do (16 * log_n / 2 a word against 8 bytes a word and pass).
+// So the design is (a) few passes and (b) nothing but butterflies in them.
+//
+// Pass plan (the same as ops/fft.py::cfft_plan, which the tests pin):
+//   log_n <= 12        one contiguous pass, all layers (a tile of 2^10
+//                      words up to log_n = 10, so that a few thousand
+//                      points still spread over many SMs);
+//   log_n 13 .. 22     a contiguous pass (layers 0 .. c-1) and a strided
+//                      pass (the k = max(4, log_n - 12) layers above,
+//                      c = log_n - k);
+//   log_n 23 .. 30     a contiguous pass (c = 12) and two strided passes
+//                      that halve the rest (at most 9 layers each).
+// The inverse runs them in this order, the forward in the reverse order.
+// Every pass reads its tile from device memory once, does all of its
+// layers on chip, and writes the tile once; a block reads all of its tile
+// before it writes any of it, so a pass is safe in place.  The first pass
+// reads the caller's array and writes `dst`, the later ones run on `dst`.
+//
+// Tiles.  A contiguous pass gives a block 2^12 (or 2^10) consecutive words (of one
+// column, or of several whole columns when a column is shorter: the
+// [batch, n] array is one flat run of words).  A strided pass over layers
+// s .. s+k-1 gives a block 2^k rows, 2^s words apart, by W consecutive
+// words, W = max(8, 2^12 / 2^k): every access to device memory is a whole
+// 32-byte sector, a whole 128-byte line from W = 32.  Both are one kernel:
+// a tile of 2^K rows by W words in which the layers act on the row index
+// (K = 12, W = 1, s = 0 for the contiguous pass).
+//
+// Registers first.  A thread holds 16 values, the 16 settings of 4 row
+// bits (a "window"), and does up to 4 layers on them in registers; a pass
+// of up to 12 layers is at most 3 windows.  The first window is loaded
+// from device memory straight into registers and the last is stored from
+// them (16-byte accesses where the 16 values are consecutive words, which
+// is the contiguous pass's low window); values cross threads through
+// shared memory only between windows: two exchanges and two barriers for
+// 12 layers, against a round trip and a barrier a layer.  The tile's shape
+// and the number of layers are template parameters (14 contiguous and 7
+// strided instances a direction), so the windows, the register pairs of
+// every butterfly and the exchange offsets are constants: what is left at
+// run time is the butterflies and one address a word.  The contiguous
+// pass was also tried with its number of layers read at run time (2 + 7
+// instances a direction, the last window's layers under a predicate that
+// is the same for every thread): no spills at 105-117 registers, and yet
+// 9-23% more time at every shape from 2^16 to 2^24 points and 45-60% more
+// at 2^10 and 2^6 (H100 80GB HBM3, 700 W), for 1.5-2 s less compile time.
+// So the layers stay a template parameter.
+//
+// Shared-memory layout.  Word f = row * W + x of the tile lies at
+// f ^ (((f >> (4 + log W)) & (32 / W - 1)) * W) for W < 32, at f otherwise:
+// row bits 4.. are xor-ed into the bank bits that x leaves free.  In every
+// window the 32 lanes of a warp differ in x and in the lowest row bits
+// outside the window; those are row bits 0.. (banks by position) or row
+// bits 4.. (banks by the xor), so the 32 lanes of each access hit 32
+// banks: no padding, no conflicts, and the same formula for every W.  It
+// is linear over xor, so register m's address is the thread's base xor a
+// constant.
+//
+// Twiddles once for many columns.  The twiddle of layer l depends only on
+// the row (i0 >> (l+1)), not on the column or on x.  A thread loads the at
+// most 15 twiddles of each of its windows into registers once (45 for 12
+// layers) and then walks over `cols` columns of the batch at the same
+// tile.  The launcher picks `cols` so that the grid still has about 1024
+// blocks (132 SMs, 2 blocks of 256 threads each at up to 128 registers):
+// 1 for a batch of one column, up to 16 for wide traces.  Registers are
+// the scarce resource: 16 values, 45 twiddles and the addresses fit only
+// because the addresses are recomputed in every column (see the loop).
+//
+// Inside the kernel, as in the TPU kernel: the inverse's last pass
+// multiplies by `scale` (1/N; 1 means none) before its store, and the
+// forward's first pass reads words at or past the coefficient length
+// m = 2^log_m as zero (the layers above log_m then copy, which the same
+// butterfly computes exactly with a zero product).
 //
 // Twiddles: one buffer per (twiddle tree, domain size, direction), the
 // circle layer (n/2 values) followed by line layers 1..log_n-1 (n/4, ...,
-// 1 values), so layer l starts at n - (n >> l).  Layer l pairs index
-// i0 = h * 2^(l+1) + low with i0 + 2^l and uses twiddle h.
+// 1 values), so layer l starts at n - (n >> l).
 //
-// Batch: columns are rows of a contiguous [batch, n] int32 array; the
-// batch runs on gridDim.y.  src may equal dst (the transform is in place
-// after the first launch).
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-#include "m31.cuh"
+// Files: the kernel and the plan are in cfft_pass.cuh; this file holds the
+// C entry points and the inverse's 21 instances, cfft_forward.cu the
+// forward's, so that two nvcc processes share the compile.
+#include "cfft_pass.cuh"
 
 using namespace tstwo;
+using namespace tstwo::cfft;
+
+namespace tstwo {
+namespace cfft {
+
+PassKernel inverse_kernel_of(const Pass& p) { return kernel_of<true>(p); }
+
+}  // namespace cfft
+}  // namespace tstwo
 
 namespace {
 
-constexpr int kChunkLog = 11;      // 2^11 values = 8 KB of shared memory
-constexpr int kBlockThreads = 512;  // each does 2 butterflies a layer
-constexpr int kLayerThreads = 256;
-
-__device__ __forceinline__ void butterfly(uint32_t& v0, uint32_t& v1,
-                                          uint32_t t, bool inverse) {
-  if (!inverse) {
-    const uint32_t p = m31_mul(v1, t);
-    const uint32_t a = v0;
-    v0 = m31_add(a, p);
-    v1 = m31_sub(a, p);
-  } else {
-    const uint32_t a = v0;
-    v0 = m31_add(a, v1);
-    v1 = m31_mul(m31_sub(a, v1), t);
-  }
-}
-
-__global__ void cfft_block_kernel(const uint32_t* src, uint32_t* dst,
-                                  const uint32_t* __restrict__ tw, int log_n,
-                                  int c, bool inverse) {
-  extern __shared__ uint32_t s[];
-  const int chunk = 1 << c;
-  const size_t n = size_t(1) << log_n;
-  const size_t base = size_t(blockIdx.x) << c;
-  const size_t row = size_t(blockIdx.y) * n;
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) s[i] = src[row + base + i];
-  __syncthreads();
-  for (int step = 0; step < c; ++step) {
-    const int l = inverse ? step : c - 1 - step;
-    const uint32_t* t = tw + (n - (n >> l));
-    for (int b = threadIdx.x; b < chunk / 2; b += blockDim.x) {
-      const int low = b & ((1 << l) - 1);
-      const int i0 = ((b >> l) << (l + 1)) | low;
-      const int i1 = i0 + (1 << l);
-      uint32_t v0 = s[i0], v1 = s[i1];
-      butterfly(v0, v1, t[(base + i0) >> (l + 1)], inverse);
-      s[i0] = v0;
-      s[i1] = v1;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) dst[row + base + i] = s[i];
-}
-
-__global__ void cfft_layer_kernel(const uint32_t* src, uint32_t* dst,
-                                  const uint32_t* __restrict__ tw, int log_n,
-                                  int l, bool inverse) {
-  const size_t n = size_t(1) << log_n;
-  const size_t b = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n / 2) return;
-  const size_t row = size_t(blockIdx.y) * n;
-  const size_t h = b >> l;
-  const size_t i0 = (h << (l + 1)) | (b & ((size_t(1) << l) - 1));
-  const size_t i1 = i0 + (size_t(1) << l);
-  uint32_t v0 = src[row + i0], v1 = src[row + i1];
-  butterfly(v0, v1, tw[(n - (n >> l)) + h], inverse);
-  dst[row + i0] = v0;
-  dst[row + i1] = v1;
-}
+long long g_kernel_launches = 0;
 
 }  // namespace
 
-// Returns the cudaError_t of the first failed launch, or 0.
+// Kernel launches made by tstwo_cfft since the library was loaded.
+extern "C" long long tstwo_cfft_kernel_launches() { return g_kernel_launches; }
+
+// The passes of one transform in the order they are launched, 6 ints each:
+// contiguous (1 or 0), first layer, layers, rows of the tile, words of a
+// row, columns a block walks over.  Returns their count.
+extern "C" int tstwo_cfft_describe(int batch, int log_n, int inverse, int* out) {
+  Pass plan[kMaxPasses];
+  const int count = make_plan(log_n, plan);
+  for (int i = 0; i < count; ++i) {
+    const Pass& p = plan[inverse ? i : count - 1 - i];
+    int* row = out + 6 * i;
+    row[0] = p.contiguous;
+    row[1] = p.first;
+    row[2] = p.layers;
+    row[3] = p.contiguous ? 1 : 1 << p.rows_log;
+    row[4] = p.contiguous ? 1 << p.rows_log : 1 << p.width_log;
+    row[5] = columns_per_block(batch, log_n, p);
+  }
+  return count;
+}
+
+// src: [batch, 2^log_m] (log_m == log_n for the inverse), dst: [batch,
+// 2^log_n], both contiguous; src is only read.  Returns the cudaError_t of
+// the first failed launch, or 0.
 extern "C" int tstwo_cfft(const int32_t* src, int32_t* dst,
                           const int32_t* twiddles, int batch, int log_n,
-                          int inverse, void* stream_ptr) {
+                          int log_m, int inverse, unsigned scale,
+                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const uint32_t* in = reinterpret_cast<const uint32_t*>(src);
-  uint32_t* out = reinterpret_cast<uint32_t*>(dst);
-  const uint32_t* tw = reinterpret_cast<const uint32_t*>(twiddles);
-  const size_t n = size_t(1) << log_n;
-  const int c = log_n < kChunkLog ? log_n : kChunkLog;
-  const int block_threads = (1 << c) / 2 < kBlockThreads ? (1 << c) / 2 : kBlockThreads;
-  const dim3 block_grid(static_cast<unsigned>(n >> c), batch);
-  const dim3 layer_grid(static_cast<unsigned>((n / 2 + kLayerThreads - 1) / kLayerThreads),
-                        batch);
-  const size_t smem = sizeof(uint32_t) << c;
-  cudaError_t err;
-  if (!inverse) {
-    for (int l = log_n - 1; l >= c; --l) {
-      cfft_layer_kernel<<<layer_grid, kLayerThreads, 0, stream>>>(in, out, tw, log_n, l, false);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      in = out;
+  Pass plan[kMaxPasses];
+  const int count = make_plan(log_n, plan);
+  PassArgs a;
+  a.src = reinterpret_cast<const uint32_t*>(src);
+  a.dst = reinterpret_cast<uint32_t*>(dst);
+  a.tw = reinterpret_cast<const uint32_t*>(twiddles);
+  a.log_n = log_n;
+  a.log_m = log_m;
+  a.batch = batch;
+  for (int i = 0; i < count; ++i) {
+    const Pass& p = plan[inverse ? i : count - 1 - i];
+    const int tile_log = p.rows_log + p.width_log;
+    a.cols = columns_per_block(batch, log_n, p);
+    a.s = p.first;
+    a.flat = log_n < tile_log;
+    a.vec_load = reinterpret_cast<uintptr_t>(a.src) % 16 == 0 && a.log_m >= 2;
+    a.vec_store = reinterpret_cast<uintptr_t>(a.dst) % 16 == 0;
+    a.scale = (i == count - 1) ? scale : 1u;
+    dim3 grid;
+    if (a.flat) {
+      const size_t total = size_t(batch) << log_n;
+      grid = dim3(static_cast<unsigned>((total + (size_t(1) << tile_log) - 1) >> tile_log));
+    } else {
+      grid = dim3(1u << (log_n - tile_log),
+                  static_cast<unsigned>((batch + a.cols - 1) / a.cols));
     }
-    cfft_block_kernel<<<block_grid, block_threads, smem, stream>>>(in, out, tw, log_n, c, false);
-    return cudaGetLastError();
-  }
-  cfft_block_kernel<<<block_grid, block_threads, smem, stream>>>(in, out, tw, log_n, c, true);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  for (int l = c; l < log_n; ++l) {
-    cfft_layer_kernel<<<layer_grid, kLayerThreads, 0, stream>>>(out, out, tw, log_n, l, true);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int threads = 1 << (tile_log - 4);
+    const size_t smem = p.layers > 4 ? sizeof(uint32_t) << tile_log : 0;
+    const PassKernel kernel = inverse ? inverse_kernel_of(p) : forward_kernel_of(p);
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    kernel<<<grid, threads, smem, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++g_kernel_launches;
+    a.src = a.dst;
+    a.log_m = log_n;
   }
   return cudaSuccess;
 }

@@ -21,7 +21,7 @@ from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
 from ..poly.twiddles import precompute_twiddles
 from ..prover import StarkProof, prove, verify
-from ..utils import to_torch_u32
+from ..utils import entry_device, to_torch_u32
 
 CONSTRAINT_EVAL_BLOWUP_FACTOR = 1
 
@@ -47,9 +47,11 @@ class TestEval(FrameworkEval):
 
 
 def generate_trace(log_num_rows: int, col1_vals=(1, 7), col2_vals=(5, 11),
-                   device="cpu") -> List[torch.Tensor]:
+                   device=None) -> List[torch.Tensor]:
     """3 zero-padded columns with col3 = col1*col2 + col1
-    (rust-examples/05_proving_an_air.rs:56-68)."""
+    (rust-examples/05_proving_an_air.rs:56-68), on `device` (CUDA device 0
+    unless given; "cpu" for the CPU)."""
+    device = entry_device(device)
     n = 1 << log_num_rows
     P = (1 << 31) - 1
     col1 = np.zeros(n, dtype=np.uint32)
@@ -61,11 +63,14 @@ def generate_trace(log_num_rows: int, col1_vals=(1, 7), col2_vals=(5, 11),
 
 
 def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
-                    device="cpu",
+                    device=None,
                     ) -> Tuple[StarkProof, FrameworkComponent, PcsConfig]:
-    """Full prove flow of rust-examples/05_proving_an_air.rs:52-121."""
+    """Full prove flow of rust-examples/05_proving_an_air.rs:52-121, on
+    `device`: CUDA device 0 unless given (it raises where there is none);
+    `device="cpu"` runs the plain PyTorch versions on the CPU."""
     from ..tracing import span
 
+    device = entry_device(device)
     config = config or PcsConfig()
     with span("trace_gen"):
         columns = generate_trace(log_num_rows, device=device)

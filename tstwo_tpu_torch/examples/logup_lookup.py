@@ -35,7 +35,7 @@ from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
 from ..poly.twiddles import precompute_twiddles
 from ..prover import StarkProof, prove, verify
-from ..utils import to_torch_u32
+from ..utils import entry_device, to_torch_u32
 
 RELATION_SIZE = 1
 
@@ -72,9 +72,11 @@ class LookupEval(FrameworkEval):
         return ev
 
 
-def generate_trace(log_size: int, seed: int = 0, device="cpu"):
+def generate_trace(log_size: int, seed: int = 0, device=None):
     """val: random table indices; mult[r]: multiplicity of table row r
-    (np.random.default_rng(seed), the JAX package's stream)."""
+    (np.random.default_rng(seed), the JAX package's stream), on `device`
+    (CUDA device 0 unless given; "cpu" for the CPU)."""
+    device = entry_device(device)
     n = 1 << log_size
     rng = np.random.default_rng(seed)
     vals = rng.integers(0, n, size=n).astype(np.uint32)
@@ -110,12 +112,14 @@ def generate_interaction_trace(log_size: int, val_col: torch.Tensor,
 
 def prove_logup_lookup(log_size: int = 8, config: PcsConfig = None,
                        seed: int = 0, pairs: bool = True, trace=None,
-                       device="cpu") -> Tuple[StarkProof, PcsConfig, QM31]:
-    """Prove the lookup AIR at 2^log_size rows on `device`; `trace` is an
-    optional (val, mult) pair of int32 columns to prove instead of
-    generate_trace's."""
+                       device=None) -> Tuple[StarkProof, PcsConfig, QM31]:
+    """Prove the lookup AIR at 2^log_size rows on `device`: CUDA device 0
+    unless given (it raises where there is none); `device="cpu"` runs the
+    plain PyTorch versions on the CPU.  `trace` is an optional (val, mult)
+    pair of int32 columns to prove instead of generate_trace's."""
     from ..tracing import span
 
+    device = entry_device(device)
     config = config or PcsConfig()
     with span("trace_gen"):
         val_col, mult_col = ((t.to(device) for t in trace) if trace is not None

@@ -23,7 +23,7 @@ from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
 from ..poly.twiddles import precompute_twiddles
 from ..prover import StarkProof, prove, verify
-from ..utils import to_torch_u32
+from ..utils import entry_device, to_torch_u32
 
 FIB_SEQUENCE_LENGTH = 100
 P = (1 << 31) - 1
@@ -54,10 +54,12 @@ class WideFibonacciEval(FrameworkEval):
 
 
 def generate_trace(log_n_rows: int, sequence_length: int = FIB_SEQUENCE_LENGTH,
-                   seed: int = 0, device="cpu") -> List[torch.Tensor]:
+                   seed: int = 0, device=None) -> List[torch.Tensor]:
     """Row r holds the sequence a, b, a^2+b^2, ... with random (a, b) drawn
     from np.random.default_rng(seed), the JAX package's stream; the
-    recurrence runs on `device`."""
+    recurrence runs on `device` (CUDA device 0 unless given; "cpu" for the
+    CPU)."""
+    device = entry_device(device)
     rng = np.random.default_rng(seed)
     n = 1 << log_n_rows
     a = to_torch_u32(rng.integers(0, P, size=n).astype(np.uint32), device)
@@ -72,10 +74,14 @@ def generate_trace(log_n_rows: int, sequence_length: int = FIB_SEQUENCE_LENGTH,
 def prove_wide_fibonacci(log_n_rows: int = 6,
                          sequence_length: int = FIB_SEQUENCE_LENGTH,
                          config: PcsConfig = None, seed: int = 0,
-                         device="cpu",
+                         device=None,
                          ) -> Tuple[StarkProof, FrameworkComponent, PcsConfig]:
+    """Prove 2^log_n_rows rows of `sequence_length` columns on `device`:
+    CUDA device 0 unless given (it raises where there is none);
+    `device="cpu"` runs the plain PyTorch versions on the CPU."""
     from ..tracing import span
 
+    device = entry_device(device)
     config = config or PcsConfig()
     with span("trace_gen"):
         columns = generate_trace(log_n_rows, sequence_length, seed=seed,

@@ -27,8 +27,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cfft.cu", "blake2s.cu", "deinterleave.cu", "m31_kernels.cu")
-HEADERS = ("m31.cuh",)
+SOURCES = ("cfft.cu", "cfft_forward.cu", "blake2s.cu", "deinterleave.cu",
+           "m31_kernels.cu")
+HEADERS = ("m31.cuh", "cfft_pass.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -36,8 +37,9 @@ LIB_NAME = "libtstwo_kernels.so"
 
 _VP = ctypes.c_void_p
 _SIGNATURES = {
-    # src, dst, twiddles, batch, log_n, inverse, stream
-    "tstwo_cfft": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP),
+    # src, dst, twiddles, batch, log_n, log_m, inverse, scale, stream
+    "tstwo_cfft": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint, _VP),
     # prev, seg_ptrs, seg_strides, seg_rows, n_segs, out, n, byte_len, stream
     "tstwo_blake2s_layer": (_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
                             ctypes.c_longlong, ctypes.c_longlong, _VP),
@@ -50,6 +52,14 @@ _SIGNATURES = {
     # a, b, out, n, reps, stream
     "tstwo_m31_mul_chain": (_VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
                             _VP),
+}
+
+# entry points that launch nothing: (argument types, result type)
+_QUERIES = {
+    # batch, log_n, inverse, out (6 ints a pass) -> number of passes
+    "tstwo_cfft_describe": ((ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)), ctypes.c_int),
+    "tstwo_cfft_kernel_launches": ((), ctypes.c_longlong),
 }
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
@@ -145,8 +155,21 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _entries[name.removeprefix("tstwo_")] = fn
+        for name, (argtypes, restype) in _QUERIES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            _entries[name.removeprefix("tstwo_")] = fn
         _lib = handle
     return _lib
+
+
+def entry(name: str):
+    """The bound C function tstwo_<name> (the library is built on first
+    use)."""
+    if name not in _entries:
+        lib()
+    return _entries[name]
 
 
 def _current_stream(index: int) -> int:

@@ -45,14 +45,18 @@ def _mappings_for_point(point: CirclePoint, log_size: int,
 def evaluate_values(coeffs: torch.Tensor, domain: CircleDomain,
                     tree: Optional[TwiddleTree] = None) -> torch.Tensor:
     """CFFT-evaluate coefficient tensor(s) [..., m] on `domain` (bit-reversed
-    output); m <= domain.size(), zero-extended
+    output); m <= domain.size(), a power of two, zero-extended: inside the
+    kernel on a CUDA device, by a pad on the CPU
     (reference backend/cpu/circle.ts:71-82)."""
     n = domain.size()
     log = domain.log_size()
     if coeffs.shape[-1] > n:
         raise ValueError("domain too small for polynomial")
-    if coeffs.shape[-1] < n:
-        coeffs = F.pad(coeffs, (0, n - coeffs.shape[-1]))
+    m = coeffs.shape[-1]
+    if m & (m - 1):
+        raise ValueError("coefficient length must be a power of two")
+    if log <= 2 and m < n:
+        coeffs = F.pad(coeffs, (0, n - m))
     if log == 1:
         y = domain.half_coset.initial.y.value
         v0, v1 = coeffs[..., 0], coeffs[..., 1]
@@ -97,8 +101,8 @@ def interpolate_values(values: torch.Tensor, domain: CircleDomain,
         out = fft_ops.ifft_bitrev_to_natural(values, [xinv], circle_inv)
         return m31_ops.mul(out, ninv)
     line_i, circle_i, buf = tree.fft_twiddles(log, True, values.device)
-    out = fft_ops.ifft_bitrev_to_natural(values, line_i, circle_i, buf)
-    return m31_ops.mul(out, ninv)
+    return fft_ops.ifft_bitrev_to_natural(values, line_i, circle_i, buf,
+                                          scale=ninv)
 
 
 @dataclass

@@ -87,6 +87,11 @@ class TwiddleTree:
                                        twiddle_buffer(line, circle))
         return hit
 
+    def drop_device_copies(self) -> None:
+        """Forget the cached device tensors (layers and kernel buffers);
+        they are made anew on the next use.  The host arrays stay."""
+        self._device.clear()
+
 
 _CACHE: Dict[Tuple[int, int], TwiddleTree] = {}
 

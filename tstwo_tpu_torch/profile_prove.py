@@ -15,7 +15,11 @@ of each hand kernel (`kernels.LAUNCHES`), in all and inside
 `MerkleProver.commit`, and from the profile the `cat`, `pad`,
 `contiguous` and `clone` calls made inside `MerkleProver.commit` with
 their device time, and the span of those commits on the device's timeline
-(first to last kernel of each).  Prints one JSON object.  Needs a CUDA device.
+(first to last kernel of each).  Every call of `evaluate_values` and
+`interpolate_values` (the CFFT's callers) runs under a range too, and
+every `aten::` operator that starts inside one is counted
+(`ops_in_cfft_callers`): a pad before or a product after the transform
+would show there.  Prints one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import time
 
 
 COMMIT_RANGE = "MerkleProver.commit"
+CFFT_RANGE = "circle_poly.cfft_caller"
 GLUE_OPS = ("aten::cat", "aten::pad", "aten::contiguous", "aten::clone")
 HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle")
 
@@ -32,9 +37,13 @@ HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle")
 def ops_inside(events, range_name: str, op_names) -> dict:
     """Calls of the CPU ops `op_names` that start inside a profiler range
     called `range_name`, with the device time of what they launched:
-    {op: {"calls": n, "device_ms": t}}."""
+    {op: {"calls": n, "device_ms": t}}.  `op_names` None: every `aten::`
+    operator of the profile."""
     spans = sorted((e.time_range.start, e.time_range.end, e.thread)
                    for e in events if e.name == range_name)
+    if op_names is None:  # every aten operator
+        op_names = sorted({e.name for e in events
+                           if e.name.startswith("aten::")})
     out = {name: {"calls": 0, "device_ms": 0.0} for name in op_names}
     for e in events:
         if e.name not in out:
@@ -107,6 +116,24 @@ def main(argv=None) -> None:
 
     MerkleProver.commit = staticmethod(counted_commit)
 
+    # the CFFT's callers run under a range as well, wherever they were
+    # imported by name
+    from . import constraint_framework
+    from .pcs import prover as pcs_prover
+    from .poly import circle_poly
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function(CFFT_RANGE):
+                return fn(*a, **kw)
+        return call
+
+    for name in ("evaluate_values", "interpolate_values"):
+        wrapped = ranged(getattr(circle_poly, name))
+        for module in (circle_poly, pcs_prover, constraint_framework):
+            if hasattr(module, name):
+                setattr(module, name, wrapped)
+
     warm_s = prove()
     kernels.reset_launches()
     in_commit = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -127,15 +154,17 @@ def main(argv=None) -> None:
         profiled_s = prove()
     # device-side events only (a launching CPU op also reports the time of
     # the kernels it launched)
-    # (the commit range also has a device-side event, first to last kernel
-    # of each commit: reported apart, it is no kernel)
+    # (the two ranges also have device-side events, first to last kernel
+    # of each commit or CFFT caller: reported apart, they are no kernels)
     averages = [e for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA")
                 and e.self_device_time_total > 0]
     commit_span_us = sum(e.self_device_time_total for e in averages
                          if e.key == COMMIT_RANGE)
+    cfft_span_us = sum(e.self_device_time_total for e in averages
+                       if e.key == CFFT_RANGE)
     by_kernel = [(e.key, e.self_device_time_total, e.count)
-                 for e in averages if e.key != COMMIT_RANGE]
+                 for e in averages if e.key not in (COMMIT_RANGE, CFFT_RANGE)]
     device_us = sum(t for _, t, _ in by_kernel)
     by_kernel.sort(key=lambda k: -k[1])
     hand = [{"name": name[:60], "ms": t / 1e3, "calls": n}
@@ -158,8 +187,12 @@ def main(argv=None) -> None:
         "launches_per_prove": launches,
         "launches_in_merkle_commit": launches_in_commit,
         "merkle_commit_device_span_ms": commit_span_us / 1e3,
+        "cfft_callers_device_span_ms": cfft_span_us / 1e3,
         "ops_in_merkle_commit": ops_inside(prof.events(), COMMIT_RANGE,
                                            GLUE_OPS),
+        "ops_in_cfft_callers": {
+            op: v for op, v in ops_inside(prof.events(), CFFT_RANGE,
+                                          None).items() if v["calls"]},
     }, indent=1))
 
 

@@ -81,6 +81,23 @@ def to_torch_u32(arr, device="cpu"):
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
 
+def entry_device(device=None):
+    """The device an entry point (`prove_*`, `generate_trace`) runs on:
+    CUDA device 0 unless the caller names one; `device="cpu"` asks for the
+    CPU.  Without a CUDA device the default raises: nothing steps down to
+    the CPU on its own."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the entry points run on cuda:0 by default "
+            "(torch.cuda.is_available() is false); pass device=\"cpu\" to "
+            "run on the CPU")
+    return torch.device("cuda", 0)
+
+
 def to_numpy_u32(t) -> np.ndarray:
     """int32 tensor (any device) -> numpy uint32 array with the same bits."""
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
