@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card at the shapes its path gives it, then
-drives four paths, each with the launch counts set to 0 just before it and
+drives six paths, each with the launch counts set to 0 just before it and
 read just after:
 
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
@@ -18,7 +18,15 @@ read just after:
     verifies 2^16 and 2^20;
   * GKR: 2^12 batch proofs of each layer kind against CPU ones, then a
     GrandProduct + LogUpGeneric batch at 2^20, verified, with its claims
-    checked against the input MLEs.
+    checked against the input MLEs;
+  * the Poseidon252 flavour of the basic AIR (`prove_basic_air(...,
+    flavor="poseidon252")`): the golden 2^4 proof against the committed JAX
+    proof, a 2^6 CUDA proof against the CPU one, then proves at 2^16 and
+    2^20 rows, each verified on the host by Python-int Hades; the path
+    must launch the Poseidon layer kernel and no Blake2s kernel;
+  * the Poseidon sponge (`ops.poseidon252.poseidon_hash_many`) over 2^16
+    rows, which runs the Hades permutation kernel, against the host's
+    hash.
 
 Each phase prints one line (name, seconds, result); any failure exits
 non-zero.  The second-to-last line is the kernel table as JSON, the last
@@ -53,6 +61,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port_wide_fib_log8x8_seed0.json"
 LOGUP_FIXTURE = ROOT / "tests" / "data" / "torch_port_logup_log8_seed0.json"
+POSEIDON_FIXTURE = (ROOT / "tests" / "data"
+                    / "torch_port_basic_air_poseidon_log4.json")
 CSRC = "tstwo_tpu_torch/csrc/"
 REPLACES = {
     "cfft_forward": "tstwo_tpu/ops/pallas/fft_kernels.py:545",
@@ -66,6 +76,10 @@ REPLACES = {
     "deinterleave": "tstwo_tpu/ops/pallas/interleave.py:50",
     "m31_mul": "tstwo_tpu/ops/pallas/m31_kernels.py:58",
     "m31_mul_chain": "tstwo_tpu/ops/pallas/m31_kernels.py:90",
+    # no Pallas kernel: the jitted programs these two are the counterparts of
+    "hades_permutation": "tstwo_tpu/ops/poseidon252.py:198 (jitted program)",
+    "poseidon_merkle_layer": "tstwo_tpu/vcs/poseidon252_merkle.py:55 "
+                             "(jitted program)",
 }
 # One H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device memory; 67
 # TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x 2 (a
@@ -85,6 +99,31 @@ B2S_OPS_PER_BLOCK = 80 * 8 + 16
 # subtract: 9), a modular add (3) and a modular subtract (4).
 BUTTERFLY_OPS = 16
 M31_MUL_OPS = 9
+# Felt252 arithmetic, counted as the function needs it and not as
+# csrc/felt252.cuh writes it.  A 32 x 32 product added into a 64-bit sum is
+# one instruction (a wide multiply-add): a product of two felts of eight
+# words is 64 of them, a square 36 (the 28 cross products once, doubled, and
+# the 8 squares).  Reducing the 16-word result modulo p = 2^251 + 17 * 2^192
+# + 1 is 8 steps of about 3 operations (p == 1 mod 2^32 makes the Montgomery
+# factor a negation and m * p a product by 17 and two shifted adds).  A
+# modular add or subtract is 8 adds with carry and 8 for the conditional
+# subtraction.  A Hades permutation: 8 full rounds of three cubes and 83
+# partial rounds of one, each cube a square and a product (107 of each), and
+# a round's 3 constant adds and 9 adds and subtracts of the MDS.
+# `source_count_ms` is beside the bound in a row: the kernel's own count from
+# its source (every product a full one of 64 multiply-adds with two adds
+# each for the third term and the carry, 96 for its reduction, 64 for the
+# result words, 16 for the conditional subtraction: 368; a modular add 24)
+# over the same rate, which says how far the kernel's body is from what the
+# function needs, and how close the kernel runs to its own body.
+FELT_REDUCE_OPS = 8 * 3
+FELT_MUL_OPS = 64 + FELT_REDUCE_OPS
+FELT_SQR_OPS = 36 + FELT_REDUCE_OPS
+FELT_ADD_OPS = 16
+HADES_OPS = 107 * (FELT_MUL_OPS + FELT_SQR_OPS) + 91 * 12 * FELT_ADD_OPS
+HADES_SOURCE_OPS = 214 * (192 + 96 + 64 + 16) + 91 * 12 * 24
+P252 = (1 << 251) + 17 * (1 << 192) + 1
+FELT_EDGE = [0, 1, 2, P252 - 1, P252 - 2, 1 << 251, (1 << 251) - 1, 17 << 192]
 P = (1 << 31) - 1
 M31_EDGE = [0, 1, 2, P - 1, P - 2, 1 << 16, (1 << 16) - 1, (1 << 30) + 12345]
 
@@ -115,6 +154,7 @@ def compare_kernels(device):
     from tstwo_tpu_torch.circle import CanonicCoset
     from tstwo_tpu_torch.measure_roofline import time_call, time_ms
     from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
+    from tstwo_tpu_torch.ops import poseidon252 as pos
     from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
     from tstwo_tpu_torch.utils import to_torch_u32
 
@@ -327,6 +367,51 @@ def compare_kernels(device):
           lambda: m31_kernels.mul_chain_cuda(a, b, 8),
           lambda: m31_kernels.mul_chain_plain(a, b, 8), "m31_kernels.cu",
           n_bytes=12 * a.numel(), n_ops=8 * M31_MUL_OPS * a.numel())
+    # The Hades permutation of a batch: 1, 1000 and 2^16 states, the edge
+    # felts in every position of the first states, the rest random.
+    def rand_felts(n):
+        words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+        words[7] &= (1 << 19) - 1  # below 2^251, so below p
+        return to_torch_u32(words.astype(np.uint32), device)
+
+    def hades_row(name, shape, n_perms, n_bytes, **kw):
+        ops = HADES_OPS * n_perms
+        check(name, shape, source="poseidon252.cu", n_bytes=n_bytes,
+              n_ops=ops, extra={"source_count_ms": max(
+                  n_bytes / HBM_BYTES_PER_S,
+                  HADES_SOURCE_OPS * n_perms / INT32_OPS_PER_S) * 1e3}, **kw)
+
+    edge = pos.ints_to_felts(FELT_EDGE, device)
+    for n in (1, 1000, 1 << 16):
+        state = torch.stack([rand_felts(n) for _ in range(3)])
+        m = min(n, len(FELT_EDGE))
+        for k in range(3):
+            state[k, :, :m] = edge.roll(k, dims=1)[:, :m]
+        hades_row("hades_permutation", f"[3,8,{n}]", n, 2 * 96 * n,
+                  kernel=lambda: pos.hades_permutation_cuda(state),
+                  plain=lambda: pos.hades_permutation_plain(state))
+    # Poseidon252 Merkle layers as the commits give them to the kernel: a
+    # leaf layer of 3 columns (the basic AIR's trace) and of 9 (two blocks),
+    # an inner layer without columns, an inner layer where a [4, n] stack
+    # joins (the FRI first layer); then the 2^20 prove's largest layers
+    # (there the plain version takes seconds a call: ~40k passes over the
+    # batch a permutation).
+    for log_n, n_cols, with_prev in [
+            (14, 3, False), (12, 9, False), (13, 0, True), (10, 4, True),
+            (21, 3, False), (21, 0, True), (22, 4, False), (21, 4, True)]:
+        n = 1 << log_n
+        prev = rand_felts(2 * n) if with_prev else None
+        cols = [rand((n_cols, n))] if n_cols else []
+        n_felts = (2 if with_prev else 0) + -(-n_cols // 8) + 1
+        hades_row("poseidon_merkle_layer",
+                  (f"2^{log_n} nodes of [8,2^{log_n + 1}]" if with_prev
+                   else f"2^{log_n} leaves")
+                  + (f" + [{n_cols},2^{log_n}]" if n_cols else ""),
+                  n * -(-n_felts // 2),
+                  4 * n * (n_cols + (16 if with_prev else 0) + 8),
+                  kernel=lambda: pos.merkle_layer_cuda(prev, cols, n, device),
+                  plain=lambda: pos.merkle_layer_plain(prev, cols, n, device))
+        del prev, cols
     # the Pallas tests' edge values at lengths the TPU tiling refused
     t0 = time.perf_counter()
     for n in (1, 1000, 4097):
@@ -358,7 +443,7 @@ def proof_json(proof) -> str:
 def main() -> None:
     if not (ROOT / "tstwo_tpu_torch" / "kernels.py").is_file():
         fail("tstwo_tpu_torch is not beside this script")
-    for fixture in (FIXTURE, LOGUP_FIXTURE):
+    for fixture in (FIXTURE, LOGUP_FIXTURE, POSEIDON_FIXTURE):
         if not fixture.is_file():
             fail(f"missing golden fixture {fixture}")
     import torch
@@ -463,9 +548,12 @@ def main() -> None:
     counts.update(m31_mul=launches["m31_mul"],
                   m31_mul_chain=launches["m31_mul_chain"])
 
-    # 8-10. LogUp, 11-12. GKR
+    # 8-10. LogUp, 11-12. GKR, 13-16. the Poseidon252 flavour and sponge
     logup_phases(device)
     gkr_phases(device)
+    counts["poseidon_merkle_layer"] = poseidon_phases(device)[
+        "poseidon_merkle_layer"]
+    counts["hades_permutation"] = poseidon_sponge(device)["hades_permutation"]
 
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -482,9 +570,9 @@ MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
                      "merkle_layer", "merkle_tail", "deinterleave")
 
 
-def launch_counts(path: str, required) -> dict:
+def launch_counts(path: str, required, forbidden=()) -> dict:
     """The launch counts of `path` (reset just before it ran); fails if a
-    kernel in `required` was not launched."""
+    kernel in `required` was not launched, or one in `forbidden` was."""
     from tstwo_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
@@ -492,6 +580,9 @@ def launch_counts(path: str, required) -> dict:
     for name in required:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the {path} path")
+    for name in forbidden:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched by the {path} path")
     return launches
 
 
@@ -681,6 +772,145 @@ def gkr_phases(device) -> dict:
           "MLEs at the OOD point on the card and on the CPU; peak device "
           f"memory {peak / 2**30:.3f} GiB")
     return launch_counts("gkr", ("deinterleave",))
+
+
+def poseidon_proof_fields(proof) -> dict:
+    """A Poseidon252 proof in the layout of `proof_to_dict`, a felt252
+    digest as 64 hex digits (the encoding of the committed fixture, which
+    tests/test_torch_poseidon_prove.py writes from the JAX proof;
+    `proof_to_dict` itself does not take felt digests)."""
+    def digest(x):
+        return f"{x.value:064x}"
+
+    def decommitment(d):
+        return {"hash_witness": [digest(h) for h in d.hash_witness],
+                "column_witness": [m.value for m in d.column_witness]}
+
+    def layer(l):
+        return {"fri_witness": [list(v.to_ints()) for v in l.fri_witness],
+                "decommitment": decommitment(l.decommitment),
+                "commitment": digest(l.commitment)}
+
+    p = proof.commitment_scheme_proof
+    fri = p.config.fri_config
+    return {
+        "config": {"pow_bits": p.config.pow_bits, "fri_config": {
+            "log_last_layer_degree_bound": fri.log_last_layer_degree_bound,
+            "log_blowup_factor": fri.log_blowup_factor,
+            "n_queries": fri.n_queries}},
+        "commitments": [digest(c) for c in p.commitments],
+        "sampled_values": [[[list(v.to_ints()) for v in col] for col in tree]
+                           for tree in p.sampled_values],
+        "decommitments": [decommitment(d) for d in p.decommitments],
+        "queried_values": [[m.value for m in tree]
+                           for tree in p.queried_values],
+        "proof_of_work": p.proof_of_work,
+        "fri_proof": {
+            "first_layer": layer(p.fri_proof.first_layer),
+            "inner_layers": [layer(l) for l in p.fri_proof.inner_layers],
+            "last_layer_poly": [list(c.to_ints())
+                                for c in p.fri_proof.last_layer_poly.coeffs]},
+    }
+
+
+POSEIDON_MID_LOG = 6  # the CPU-plain prove there takes about half a minute
+
+
+def poseidon_phases(device) -> dict:
+    """Phases 13-15: the basic AIR under the Poseidon252 flavour.  Golden
+    2^4 proof, 2^6 CUDA == CPU, then two proves each at 2^16 and 2^20 rows
+    with the launches counted; every proof verified on the host, whose
+    hash_node is Python-int Hades and shares nothing with the kernel."""
+    import torch
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.examples.basic_air import (prove_basic_air,
+                                                    verify_basic_air)
+
+    def prove(log_n, where):
+        return prove_basic_air(log_n, device=where, flavor="poseidon252")
+
+    def fields_json(proof):
+        return json.dumps(poseidon_proof_fields(proof), sort_keys=True)
+
+    t0 = time.perf_counter()
+    proof, comp, cfg = prove(4, device)
+    if fields_json(proof) != POSEIDON_FIXTURE.read_text().strip():
+        fail("Poseidon252 basic-AIR log 4 CUDA proof differs from the JAX "
+             "fixture")
+    verify_basic_air(proof, comp, cfg, 4, flavor="poseidon252")
+    phase("poseidon golden", time.perf_counter() - t0,
+          "basic AIR log 4 proof == JAX fixture, field by field; verified")
+
+    t0 = time.perf_counter()
+    proof, comp, cfg = prove(POSEIDON_MID_LOG, device)
+    cuda_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cpu_json = fields_json(prove(POSEIDON_MID_LOG, "cpu")[0])
+    cpu_s = time.perf_counter() - t1
+    if fields_json(proof) != cpu_json:
+        fail(f"Poseidon252 log {POSEIDON_MID_LOG} CUDA proof differs from "
+             "the CPU proof")
+    verify_basic_air(proof, comp, cfg, POSEIDON_MID_LOG,
+                     flavor="poseidon252")
+    phase("poseidon mid_size", time.perf_counter() - t0,
+          f"log {POSEIDON_MID_LOG} CUDA proof ({cuda_s:.3f} s) == CPU plain "
+          f"proof ({cpu_s:.3f} s); verified")
+
+    prove(16, device)  # fills the host-side caches of that size
+    kernels.reset_launches()
+    for log_n in (16, 20):
+        walls = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats(device)
+            (proof, comp, cfg), wall = timed(lambda: prove(log_n, device))
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated(device)
+        t1 = time.perf_counter()
+        verify_basic_air(proof, comp, cfg, log_n, flavor="poseidon252")
+        phase(f"poseidon prove {log_n}", walls[1],
+              f"two proves {walls[0]:.3f} s, {walls[1]:.3f} s; verified on "
+              f"the host in {time.perf_counter() - t1:.3f} s; peak device "
+              f"memory {peak / 2**30:.3f} GiB; proof "
+              f"{proof.size_estimate()} bytes")
+    return launch_counts(
+        "poseidon",
+        ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
+         "deinterleave"),
+        forbidden=("blake2s", "merkle_layer", "merkle_tail"))
+
+
+def poseidon_sponge(device) -> dict:
+    """Phase 16: `poseidon_hash_many` of 2^16 rows of three felts on the
+    card (two Hades launches): every row against the same sponge around
+    the plain permutation, rows 0-7 against the host's hash."""
+    import numpy as np
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.channel.poseidon import poseidon_hash_many
+    from tstwo_tpu_torch.ops import poseidon252 as pos
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    rng = np.random.default_rng(16)
+    cols = []
+    for _ in range(3):
+        words = rng.integers(0, 1 << 32, size=(8, 1 << 16), dtype=np.uint64)
+        words[7] &= (1 << 19) - 1
+        cols.append(to_torch_u32(words.astype(np.uint32), device))
+    kernels.reset_launches()
+    digests, wall = timed(lambda: pos.poseidon_hash_many(cols))
+    launches = launch_counts("poseidon sponge", ("hades_permutation",))
+    rows = list(zip(*(pos.felts_to_ints(c[:, :8]) for c in cols)))
+    if pos.felts_to_ints(digests[:, :8]) != [poseidon_hash_many(r)
+                                             for r in rows]:
+        fail("poseidon_hash_many on the card differs from the host's hash")
+    plain = pos._sponge(cols, 1 << 16, device, pos.hades_permutation_plain)
+    if max_abs_err(digests, plain):
+        fail("poseidon_hash_many on the card differs from the plain sponge")
+    phase("poseidon sponge", wall,
+          "poseidon_hash_many of 2^16 rows of 3 felts == the sponge around "
+          "the plain permutation (all rows) == host hash (rows 0-7)")
+    return launches
 
 
 if __name__ == "__main__":

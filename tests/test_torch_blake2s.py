@@ -121,7 +121,8 @@ def test_merkle_layers_root_and_decommitment_match_jax(stacked):
 
 
 def test_merkle_of_no_columns_matches_jax():
-    assert MerkleProver.commit([]).root() == JaxMerkleProver.commit([]).root()
+    assert MerkleProver.commit([], "cpu").root() == \
+        JaxMerkleProver.commit([]).root()
 
 
 def test_channel_transcript_matches_jax():

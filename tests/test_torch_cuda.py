@@ -13,6 +13,7 @@ import torch
 
 from tstwo_tpu_torch import kernels
 from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
+from tstwo_tpu_torch.ops import poseidon252 as pos
 from tstwo_tpu_torch.utils import to_torch_u32
 
 P = (1 << 31) - 1
@@ -328,7 +329,170 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     fri_ops._deinterleave(x)
     m31_kernels.mul(x[0], x[1])
     m31_kernels.mul_chain(x[0], x[1], 3)
+    leaves = pos.merkle_layer(None, [x])
+    pos.merkle_layer(leaves, [])
+    pos.poseidon_hash_many([leaves, leaves, leaves])  # two sponge steps
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
                                 "blake2s": 2, "merkle_layer": 1,
                                 "merkle_tail": 1, "deinterleave": 1,
-                                "m31_mul": 1, "m31_mul_chain": 1}
+                                "m31_mul": 1, "m31_mul_chain": 1,
+                                "hades_permutation": 2,
+                                "poseidon_merkle_layer": 2}
+
+
+P252 = (1 << 251) + 17 * (1 << 192) + 1
+FELT_EDGE = [0, 1, 2, P252 - 1, P252 - 2, 1 << 251, (1 << 251) - 1,
+             17 << 192, (1 << 224) - 1, (1 << 32) - 1]
+
+
+def _rand_felts(rng, n, device):
+    """n felts below 2^251 (so below p) with every word random."""
+    words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    words[7] &= (1 << 19) - 1
+    return to_torch_u32(words.astype(np.uint32), device)
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000, 4097, 1 << 16])
+def test_hades_kernel_matches_plain_and_host(device, n):
+    """Any batch size; the edge felts in every position of the state; a few
+    states against the host's Python-int Hades as well."""
+    from tstwo_tpu_torch.channel.poseidon import hades_permutation as host
+
+    rng = np.random.default_rng(n)
+    state = [_rand_felts(rng, n, device) for _ in range(3)]
+    edge = pos.ints_to_felts(FELT_EDGE, device)
+    for k in range(3):
+        m = min(n, len(FELT_EDGE))
+        state[k][:, :m] = edge.roll(k, dims=1)[:, :m]
+    before = [s.clone() for s in state]
+    got = pos.hades_permutation_cuda(state)
+    small = [s[:, :2048] for s in state]  # the plain version is slow
+    for g, w in zip(got, pos.hades_permutation_plain(small)):
+        _exact(g[:, :2048], w)
+    for s, b in zip(state, before):
+        _exact(s, b)
+    ints = [pos.felts_to_ints(s[:, :12]) for s in state]
+    outs = [pos.felts_to_ints(g[:, :12]) for g in got]
+    for i in range(min(n, 12)):
+        assert [o[i] for o in outs] == host([v[i] for v in ints])
+    # one [3, 8, n] tensor, and a view of one, are taken as well
+    stacked = torch.stack(state)
+    for g, w in zip(pos.hades_permutation(stacked), got):
+        _exact(g, w)
+    if n > 4:
+        for g, w in zip(pos.hades_permutation(stacked[:, :, 1:n - 2]), got):
+            _exact(g, w[:, 1:n - 2])
+
+
+@pytest.mark.parametrize("log,n_cols,with_prev,layout", [
+    (10, 3, False, "stack"), (10, 9, False, "single"), (10, 8, False, "stack"),
+    (11, 0, True, "stack"), (10, 4, True, "stack"), (9, 17, True, "single"),
+    (10, 40, False, "mixed"), (0, 3, False, "single"), (0, 0, True, "stack"),
+    (3, 0, False, "stack"), (12, 16, True, "strided")])
+def test_poseidon_layer_kernel_matches_plain(device, log, n_cols, with_prev,
+                                             layout):
+    """Leaves of one to five blocks, inner nodes with and without joining
+    columns, the layer that hashes no value, one node; columns as one
+    stack, as single columns (more than 16: concatenated by the wrapper),
+    mixed, and as rows a stride apart."""
+    rng = np.random.default_rng(100 * log + n_cols)
+    n = 1 << log
+    prev = _rand_felts(rng, 2 * n, device) if with_prev else None
+    cols = _rand(rng, (n_cols, n), device)
+    if layout == "stack":
+        entries = [cols] if n_cols else []
+    elif layout == "single":
+        entries = list(cols)
+    elif layout == "mixed":
+        entries = [cols[:7], cols[7], cols[8:30], *cols[30:]]
+    else:
+        wide = _rand(rng, (n_cols, 2 * n + 6), device)
+        entries = [wide[:, 3:n + 3], wide[::2, n + 5:2 * n + 5]]
+    kernels.reset_launches()
+    got = pos.merkle_layer_cuda(prev, entries, n, device)
+    assert kernels.LAUNCHES["poseidon_merkle_layer"] == 1
+    _exact(got, pos.merkle_layer_plain(prev, entries, n, device))
+    _exact(pos.merkle_layer(prev, entries, n, device), got)
+
+
+def test_poseidon_layer_kernel_takes_a_strided_child_layer(device):
+    rng = np.random.default_rng(4)
+    wide = _rand_felts(rng, 70, device)
+    prev = wide[:, 3:67]
+    assert not prev.is_contiguous()
+    _exact(pos.merkle_layer_cuda(prev, []),
+           pos.merkle_layer_plain(prev.contiguous(), []))
+
+
+def test_poseidon_wrappers_refuse_what_the_kernels_do_not_take(device):
+    x = _rand(np.random.default_rng(5), (3, 8), device)
+    with pytest.raises(ValueError, match="expected \\[8\\]"):
+        pos.merkle_layer_cuda(None, [x, x[:, :4]])
+    with pytest.raises(TypeError, match="int32"):
+        pos.merkle_layer_cuda(None, [x.to(torch.int64)])
+    with pytest.raises(ValueError, match="three"):
+        pos.hades_permutation_cuda([x, x])
+    with pytest.raises(ValueError, match="\\[8, 2n\\]"):
+        pos.merkle_layer_cuda(_rand_felts(np.random.default_rng(6), 7, device),
+                              [])
+
+
+@pytest.mark.parametrize("sizes", [
+    [(0, 3)], [(1, 0)], [(10, 2)], [(12, 9)],
+    [(11, 2), (10, 0), (6, 4), (11, 0), (2, 0), (0, 0)], [(11, 1), (3, 17)]],
+    ids=str)
+def test_poseidon_commit_on_the_card_equals_the_cpu_tree(device, sizes):
+    """Every layer through the kernel on the card and through the plain
+    version on the CPU; the openings too.  No Blake2s launch."""
+    from tstwo_tpu_torch.vcs.poseidon252_merkle import Poseidon252MerkleProver
+
+    rng = np.random.default_rng(len(sizes))
+    cols = [_rand(rng, ((1 << log) if c == 0 else (c, 1 << log)), "cpu")
+            for log, c in sizes]
+    kernels.reset_launches()
+    on_card = Poseidon252MerkleProver.commit([c.to(device) for c in cols])
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert launched == {"poseidon_merkle_layer": len(on_card.layers)}
+    on_cpu = Poseidon252MerkleProver.commit(cols)
+    assert len(on_card.layers) == len(on_cpu.layers)
+    for a, b in zip(on_card.layers, on_cpu.layers):
+        _exact(a, b)
+    assert on_card.root() == on_cpu.root()
+    queries = {log: sorted({0, (1 << log) // 3, (1 << log) - 1})
+               for log, _ in sizes}
+    got = on_card.decommit(queries, [c.to(device) for c in cols])
+    want = on_cpu.decommit(queries, cols)
+    assert [v.value for v in got[0]] == [v.value for v in want[0]]
+    assert got[1].hash_witness == want[1].hash_witness
+
+
+def test_empty_poseidon_commit_on_the_card(device):
+    from tstwo_tpu_torch.vcs.poseidon252_merkle import (
+        Poseidon252MerkleProver, hash_node)
+
+    tree = Poseidon252MerkleProver.commit([], device)
+    assert tree.layers[0].device.type == "cuda"
+    assert tree.root() == hash_node(None, [])
+
+
+def test_poseidon_prove_on_the_card_equals_the_cpu_prove(device):
+    from tstwo_tpu_torch.examples.basic_air import (prove_basic_air,
+                                                    verify_basic_air)
+
+    kernels.reset_launches()
+    proof, component, config = prove_basic_air(5, device=device,
+                                               flavor="poseidon252")
+    assert kernels.LAUNCHES["poseidon_merkle_layer"] > 0
+    assert kernels.LAUNCHES["blake2s"] == kernels.LAUNCHES["merkle_layer"] \
+        == kernels.LAUNCHES["merkle_tail"] == 0
+    verify_basic_air(proof, component, config, 5, flavor="poseidon252")
+    cpu = prove_basic_air(5, device="cpu", flavor="poseidon252")[0]
+    a, b = proof.commitment_scheme_proof, cpu.commitment_scheme_proof
+    assert list(a.commitments) == list(b.commitments)
+    assert [d.hash_witness for d in a.decommitments] == \
+        [d.hash_witness for d in b.decommitments]
+    assert a.proof_of_work == b.proof_of_work
+    assert a.fri_proof.first_layer.commitment == \
+        b.fri_proof.first_layer.commitment
+    assert [l.commitment for l in a.fri_proof.inner_layers] == \
+        [l.commitment for l in b.fri_proof.inner_layers]

@@ -132,3 +132,41 @@ def test_launch_raises_and_counts_nothing_when_the_launch_failed(fake_entry):
     with pytest.raises(RuntimeError, match="probe kernel launch failed"):
         kernels.launch("probe", "probe", torch.device("cuda", 0), 1)
     assert kernels.LAUNCHES["probe"] == 0
+
+
+def test_segment_table_takes_rows_where_they_lie():
+    """The table both Merkle layer wrappers hand to their kernels: [n] and
+    [C, n] entries in order, strided rows as they are, empty stacks
+    skipped, more than MAX_SEGMENTS entries concatenated into one."""
+    import torch
+
+    cpu = torch.device("cpu")
+    wide = torch.arange(40, dtype=torch.int32).reshape(4, 10)
+    entries = [wide[0, :8], wide[1:3, 2:10], wide[:0, :8], wide[::2, 1:9]]
+    table = kernels.segment_table(entries, 8, cpu)
+    ptrs, strides, rows, count = table.args
+    assert (count, table.rows) == (3, 5)
+    assert list(rows)[:3] == [1, 2, 2] and list(strides)[1:3] == [10, 20]
+    assert list(ptrs)[:3] == [wide.data_ptr(), wide[1, 2:].data_ptr(),
+                              wide[0, 1:].data_ptr()]
+    many = kernels.segment_table([wide[0, :8]] * 17, 8, cpu)
+    assert many.args[3] == 1 and many.rows == 17
+    assert torch.equal(many.segments[0], wide[0, :8].expand(17, 8))
+    assert kernels.segment_table([], 8, cpu).args == (None, None, None, 0)
+    strided = kernels.segment_table([wide[:, ::2][:, :4]], 4, cpu)
+    assert strided.segments[0].stride(1) == 1  # copied: the kernel reads rows
+
+
+def test_segment_table_refuses_what_a_kernel_does_not_take():
+    import torch
+
+    cpu = torch.device("cpu")
+    x = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected \\[4\\]"):
+        kernels.segment_table([x], 4, cpu)
+    with pytest.raises(ValueError, match="column entry"):
+        kernels.segment_table([x[None]], 8, cpu)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.segment_table([x.to(torch.int64)], 8, cpu)
+    with pytest.raises(TypeError, match="on cuda"):
+        kernels.segment_table([x], 8, torch.device("cuda", 0))

@@ -104,7 +104,9 @@ def test_decommit_verifies_and_matches_jax(name):
 
 
 def test_empty_commit_matches_jax_and_hashlib():
-    port = MerkleProver.commit([])
+    port = MerkleProver.commit([], "cpu")
+    with pytest.raises(ValueError, match="needs its device"):
+        MerkleProver.commit([])
     assert port.root() == JaxMerkleProver.commit([]).root()
     assert port.root() == hashlib.blake2s(b"").digest()
     assert [tuple(layer.shape) for layer in port.layers] == [(8, 1)]

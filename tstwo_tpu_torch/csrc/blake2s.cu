@@ -39,7 +39,13 @@
 
 #include <cstdint>
 
+#include "segments.cuh"
+
 namespace {
+
+using tstwo::Cursor;
+using tstwo::Segments;
+using tstwo::open_segment;
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int r) {
   return __funnelshift_r(x, x, r);
@@ -97,21 +103,8 @@ __device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16],
 }
 
 constexpr int kThreads = 128;
-constexpr int kMaxSegments = 16;
 constexpr int kTailThreads = 1024;
 constexpr int kMaxTailLog = 12;  // first tail level: at most 2^12 nodes
-
-// Rows of message words, word-major: word r of message i at ptr[r * stride + i].
-struct Segment {
-  const uint32_t* ptr;
-  long long stride;
-  int rows;
-};
-
-struct Segments {
-  Segment seg[kMaxSegments];
-  int count;
-};
 
 // h0 = IV ^ parameter block (digest length 32, fanout 1, depth 1)
 #define B2S_H0                                                      \
@@ -122,26 +115,6 @@ __device__ __forceinline__ uint64_t block_counter(int b, int n_blocks,
                                                   long long byte_len) {
   return b == n_blocks - 1 ? static_cast<uint64_t>(byte_len)
                            : static_cast<uint64_t>(b + 1) * 64u;
-}
-
-// The cursor over the column words of message i: p points at the next word,
-// `left` rows of the open segment remain, `next` is the segment after it.
-// It moves the same way in every thread.
-struct Cursor {
-  const uint32_t* p;
-  long long stride;
-  int left;
-  int next;
-};
-
-__device__ __forceinline__ void open_segment(Cursor& c, const Segments& segs,
-                                             long long i) {
-  if (c.next < segs.count) {
-    const Segment& s = segs.seg[c.next++];
-    c.p = s.ptr + i;
-    c.stride = s.stride;
-    c.left = s.rows;
-  }
 }
 
 // Message i = [left child || right child, if prev] || segment rows in order
@@ -246,20 +219,12 @@ extern "C" int tstwo_blake2s_layer(const int32_t* prev, const void* const* seg_p
                                    int n_segs, int32_t* out, long long n,
                                    long long byte_len, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n_segs < 0 || n_segs > kMaxSegments || n <= 0 || byte_len < 0 ||
-      reinterpret_cast<uintptr_t>(prev) % 8 != 0)
+  if (n <= 0 || byte_len < 0 || reinterpret_cast<uintptr_t>(prev) % 8 != 0)
     return cudaErrorInvalidValue;
   Segments segs;
-  long long words = prev != nullptr ? 16 : 0;
-  segs.count = n_segs;
-  if (n_segs > 0 && (seg_ptrs == nullptr || seg_strides == nullptr || seg_rows == nullptr))
-    return cudaErrorInvalidValue;
-  for (int s = 0; s < n_segs; ++s) {
-    if (seg_rows[s] <= 0) return cudaErrorInvalidValue;
-    segs.seg[s] = {static_cast<const uint32_t*>(seg_ptrs[s]), seg_strides[s],
-                   seg_rows[s]};
-    words += seg_rows[s];
-  }
+  const long long rows = tstwo::fill_segments(segs, seg_ptrs, seg_strides, seg_rows, n_segs);
+  if (rows < 0) return cudaErrorInvalidValue;
+  const long long words = rows + (prev != nullptr ? 16 : 0);
   const long long n_blocks = byte_len > 64 ? (byte_len + 63) / 64 : 1;
   if (words > 16 * n_blocks || n_blocks > (1 << 20)) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);

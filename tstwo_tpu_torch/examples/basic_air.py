@@ -10,7 +10,6 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..channel.blake2s import Blake2sChannel
 from ..circle import CanonicCoset
 from ..constraint_framework import (FrameworkComponent, FrameworkEval,
                                     TraceLocationAllocator)
@@ -63,13 +62,17 @@ def generate_trace(log_num_rows: int, col1_vals=(1, 7), col2_vals=(5, 11),
 
 
 def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
-                    device=None,
+                    device=None, flavor: str = "blake2s",
                     ) -> Tuple[StarkProof, FrameworkComponent, PcsConfig]:
     """Full prove flow of rust-examples/05_proving_an_air.rs:52-121, on
     `device`: CUDA device 0 unless given (it raises where there is none);
-    `device="cpu"` runs the plain PyTorch versions on the CPU."""
+    `device="cpu"` runs the plain PyTorch versions on the CPU.  `flavor`
+    selects the MerkleChannel: "blake2s" or "poseidon252" (Hades Merkle
+    trees, felt252 roots, the Poseidon252 channel)."""
     from ..tracing import span
+    from ..vcs.ops import MERKLE_OPS
 
+    merkle_ops = MERKLE_OPS[flavor]
     device = entry_device(device)
     config = config or PcsConfig()
     with span("trace_gen"):
@@ -84,8 +87,9 @@ def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
                 + config.fri_config.log_blowup_factor
             ).circle_domain().half_coset)
 
-    channel = Blake2sChannel()
-    commitment_scheme = CommitmentSchemeProver(config, twiddles, device)
+    channel = merkle_ops.default_channel()
+    commitment_scheme = CommitmentSchemeProver(
+        config, twiddles, device, merkle_ops=merkle_ops)
 
     # preprocessed trace (empty)
     tree_builder = commitment_scheme.tree_builder()
@@ -107,10 +111,15 @@ def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
 
 
 def verify_basic_air(proof: StarkProof, component: FrameworkComponent,
-                     config: PcsConfig, log_num_rows: int = 4) -> None:
+                     config: PcsConfig, log_num_rows: int = 4,
+                     flavor: str = "blake2s") -> None:
     """Verify flow (rust-examples/05_proving_an_air.rs:123-133)."""
-    channel = Blake2sChannel()
-    commitment_scheme = CommitmentSchemeVerifier(config)
+    from ..vcs.ops import MERKLE_OPS
+
+    merkle_ops = MERKLE_OPS[flavor]
+    channel = merkle_ops.default_channel()
+    commitment_scheme = CommitmentSchemeVerifier(
+        config, merkle_ops=merkle_ops)
     sizes = component.trace_log_degree_bounds()
     commitment_scheme.commit(proof.commitments[0], sizes[0], channel)
     channel.mix_u64(log_num_rows)

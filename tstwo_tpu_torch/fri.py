@@ -1,8 +1,9 @@
 """FRI low-degree test: prover and verifier.
 
 Folding math runs on the columns' device (ops/fri_ops); Merkle commitments
-per layer use the batched Blake2s hash; the transcript and the
-query-dependent decommitment logic are host side.  Structure follows Rust stwo fri.rs (the reference TS fri.ts:485-979
+per layer use the batched hash of the Merkle flavour (`merkle_ops`, see
+vcs/ops.py; Blake2s unless given); the transcript and the query-dependent
+decommitment logic are host side.  Structure follows Rust stwo fri.rs (the reference TS fri.ts:485-979
 stubs the commitment side with mocks and alpha=1 placeholders -- those are
 deliberately NOT reproduced; channel-drawn alphas and real Merkle roots are
 used throughout).
@@ -24,6 +25,7 @@ from .poly.twiddles import TwiddleTree
 from .queries import Queries, get_query_positions_by_log_size
 from .utils import bit_reverse_index, to_numpy_u32
 from .vcs import MerkleProver, MerkleVerificationError, MerkleVerifier
+from .vcs.ops import Blake2sMerkleOps
 
 FOLD_STEP = 1
 CIRCLE_TO_LINE_FOLD_STEP = 1
@@ -91,7 +93,7 @@ class FriLayerProof:
 
     fri_witness: List[QM31]
     decommitment: object  # MerkleDecommitment
-    commitment: bytes
+    commitment: object  # bytes (Blake2s) or FieldElement252
 
 
 @dataclass
@@ -238,11 +240,13 @@ class FriFirstLayerProver:
     """Commits the raw quotient columns (all coordinate columns in one tree)."""
 
     def __init__(self, columns: List[SecureEvaluation],
-                 merkle_tree: Optional[MerkleProver] = None):
+                 merkle_tree: Optional[MerkleProver] = None,
+                 merkle_ops=Blake2sMerkleOps):
         self.columns = columns
         if merkle_tree is None:
             # each [4, n] coordinate stack is one 2-D entry
-            merkle_tree = MerkleProver.commit([se.values for se in columns])
+            merkle_tree = merkle_ops.commit(
+                [se.values for se in columns])
         self.merkle_tree = merkle_tree
 
     def column_log_sizes(self) -> List[int]:
@@ -271,10 +275,12 @@ class FriInnerLayerProver:
     """One committed line-evaluation layer."""
 
     def __init__(self, evaluation: LineEvaluation,
-                 merkle_tree: Optional[MerkleProver] = None):
+                 merkle_tree: Optional[MerkleProver] = None,
+                 merkle_ops=Blake2sMerkleOps):
         self.evaluation = evaluation
         if merkle_tree is None:
-            merkle_tree = MerkleProver.commit([evaluation.values])
+            merkle_tree = merkle_ops.commit(
+                [evaluation.values])
         self.merkle_tree = merkle_tree
 
     def decommit(self, queries: Queries) -> FriLayerProof:
@@ -307,20 +313,22 @@ class FriProver:
     @staticmethod
     def commit_host(channel, config: FriConfig,
                     columns: List[SecureEvaluation],
-                    twiddles: TwiddleTree) -> "FriProver":
+                    twiddles: TwiddleTree,
+                    merkle_ops=Blake2sMerkleOps) -> "FriProver":
         """FRI commitment with the transcript on the host: each layer's
         root is fetched and mixed before the next alpha is drawn (the JAX
         package's fused device-transcript commit is bit-equal to this)."""
         FriProver._validate_columns(columns)
-        first_layer = FriFirstLayerProver(columns)
+        first_layer = FriFirstLayerProver(columns, merkle_ops=merkle_ops)
         channel.mix_root(first_layer.merkle_tree.root())
         inner_layers, last_eval = FriProver._commit_inner_layers(
-            channel, config, columns, twiddles)
+            channel, config, columns, twiddles, merkle_ops)
         last_layer_poly = FriProver._commit_last_layer(channel, config, last_eval)
         return FriProver(config, first_layer, inner_layers, last_layer_poly)
 
     @staticmethod
-    def _commit_inner_layers(channel, config, columns, twiddles):
+    def _commit_inner_layers(channel, config, columns, twiddles,
+                             merkle_ops=Blake2sMerkleOps):
         def folded_size(se):
             return se.domain.size() >> CIRCLE_TO_LINE_FOLD_STEP
 
@@ -340,7 +348,7 @@ class FriProver:
                 qm31_ops.scalar(folding_alpha, device=device)))
         pending = next(col_iter, None)
         while len(layer_eval) > config.last_layer_domain_size():
-            layer = FriInnerLayerProver(layer_eval)
+            layer = FriInnerLayerProver(layer_eval, merkle_ops=merkle_ops)
             channel.mix_root(layer.merkle_tree.root())
             folding_alpha = channel.draw_felt()
             alpha_dev = qm31_ops.scalar(folding_alpha, device=device)
@@ -399,7 +407,8 @@ class FriProver:
 
 class FriFirstLayerVerifier:
     def __init__(self, column_bounds, column_commitment_domains, folding_alpha,
-                 proof: FriLayerProof):
+                 proof: FriLayerProof, merkle_ops=Blake2sMerkleOps):
+        self.merkle_ops = merkle_ops
         self.column_bounds = column_bounds
         self.column_commitment_domains = column_commitment_domains
         self.folding_alpha = folding_alpha
@@ -433,7 +442,8 @@ class FriFirstLayerVerifier:
         for domain in self.column_commitment_domains:
             column_log_sizes.extend([domain.log_size()] * SECURE_EXTENSION_DEGREE)
         verifier = MerkleVerifier(
-            self.proof.commitment, column_log_sizes)
+            self.proof.commitment, column_log_sizes,
+            hasher=self.merkle_ops.hash_node)
         try:
             verifier.verify(positions_by_log, decommitted, self.proof.decommitment)
         except MerkleVerificationError:
@@ -444,7 +454,9 @@ class FriFirstLayerVerifier:
 
 class FriInnerLayerVerifier:
     def __init__(self, degree_bound, domain: LineDomain, folding_alpha,
-                 layer_index, proof: FriLayerProof):
+                 layer_index, proof: FriLayerProof,
+                 merkle_ops=Blake2sMerkleOps):
+        self.merkle_ops = merkle_ops
         self.degree_bound = degree_bound
         self.domain = domain
         self.folding_alpha = folding_alpha
@@ -469,7 +481,8 @@ class FriInnerLayerVerifier:
                 decommitted.extend(v.to_m31_array())
         verifier = MerkleVerifier(
             self.proof.commitment,
-            [self.domain.log_size()] * SECURE_EXTENSION_DEGREE)
+            [self.domain.log_size()] * SECURE_EXTENSION_DEGREE,
+            hasher=self.merkle_ops.hash_node)
         try:
             verifier.verify({self.domain.log_size(): positions}, decommitted,
                             self.proof.decommitment)
@@ -493,7 +506,8 @@ class FriVerifier:
 
     @staticmethod
     def commit(channel, config: FriConfig, proof: FriProof,
-               column_bounds: List[CirclePolyDegreeBound]) -> "FriVerifier":
+               column_bounds: List[CirclePolyDegreeBound],
+               merkle_ops=Blake2sMerkleOps) -> "FriVerifier":
         for i in range(len(column_bounds) - 1):
             if (column_bounds[i].log_degree_bound
                     < column_bounds[i + 1].log_degree_bound):
@@ -507,7 +521,7 @@ class FriVerifier:
         ]
         first_layer = FriFirstLayerVerifier(
             column_bounds, column_commitment_domains, channel.draw_felt(),
-            proof.first_layer)
+            proof.first_layer, merkle_ops=merkle_ops)
         inner_layers = []
         layer_bound = max_bound.fold_to_line()
         layer_domain = LineDomain.new(
@@ -516,7 +530,8 @@ class FriVerifier:
         for i, layer_proof in enumerate(proof.inner_layers):
             channel.mix_root(layer_proof.commitment)
             inner_layers.append(FriInnerLayerVerifier(
-                layer_bound, layer_domain, channel.draw_felt(), i, layer_proof))
+                layer_bound, layer_domain, channel.draw_felt(), i, layer_proof,
+                merkle_ops=merkle_ops))
             folded = layer_bound.fold(FOLD_STEP)
             if folded is None:
                 raise FriVerificationError(

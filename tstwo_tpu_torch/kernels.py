@@ -11,8 +11,10 @@ Each kernel counts its launches in `LAUNCHES`: the wrappers in ops/fft.py
 (forward and inverse CFFT apart), ops/blake2s.py (a layer of messages
 without children as `blake2s`, a Merkle layer that reads its child pairs
 as `merkle_layer`, the one-block top of a tree as `merkle_tail`),
-ops/fri_ops.py and ops/m31_kernels.py add one per call of the C entry
-point, and nowhere else.
+ops/fri_ops.py, ops/m31_kernels.py and ops/poseidon252.py (the Hades
+permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
+as `poseidon_merkle_layer`) add one per call of the C entry point, and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -23,13 +25,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cfft.cu", "cfft_forward.cu", "blake2s.cu", "deinterleave.cu",
-           "m31_kernels.cu")
-HEADERS = ("m31.cuh", "cfft_pass.cuh")
+           "m31_kernels.cu", "poseidon252.cu")
+HEADERS = ("m31.cuh", "cfft_pass.cuh", "segments.cuh", "felt252.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -52,6 +55,11 @@ _SIGNATURES = {
     # a, b, out, n, reps, stream
     "tstwo_m31_mul_chain": (_VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
                             _VP),
+    # in, out, n, stream
+    "tstwo_hades_permutation": (_VP, _VP, ctypes.c_longlong, _VP),
+    # prev, seg_ptrs, seg_strides, seg_rows, n_segs, out, n, stream
+    "tstwo_poseidon_merkle_layer": (_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
+                                    ctypes.c_longlong, _VP),
 }
 
 # entry points that launch nothing: (argument types, result type)
@@ -60,11 +68,15 @@ _QUERIES = {
     "tstwo_cfft_describe": ((ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.POINTER(ctypes.c_int)), ctypes.c_int),
     "tstwo_cfft_kernel_launches": ((), ctypes.c_longlong),
+    # consts (host words), n_words -> cudaError_t of the copy to the
+    # current device
+    "tstwo_poseidon_set_constants": ((_VP, ctypes.c_int), ctypes.c_int),
 }
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
             "merkle_layer": 0, "merkle_tail": 0, "deinterleave": 0,
-            "m31_mul": 0, "m31_mul_chain": 0}
+            "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
+            "poseidon_merkle_layer": 0}
 
 _lib = None
 _entries: dict = {}  # entry name -> bound C function, filled by lib()
@@ -230,3 +242,46 @@ def is_cuda(device: torch.device) -> bool:
 def on_cuda(t: torch.Tensor) -> bool:
     """`is_cuda` of the device a tensor lies on."""
     return is_cuda(t.device)
+
+
+MAX_SEGMENTS = 16  # csrc/segments.cuh: kMaxSegments
+_SegPtrs = ctypes.c_void_p * MAX_SEGMENTS
+_SegStrides = ctypes.c_longlong * MAX_SEGMENTS
+_SegRows = ctypes.c_int * MAX_SEGMENTS
+
+
+class SegmentTable(NamedTuple):
+    """Column rows for a Merkle layer kernel to read where they lie."""
+
+    segments: list  # the [C, n] tensors behind the pointers, kept alive
+    rows: int       # the rows of all segments together
+    args: tuple     # seg_ptrs, seg_strides, seg_rows, n_segs of a C entry
+
+
+def segment_table(entries: Sequence[torch.Tensor], n: int,
+                  device: torch.device) -> SegmentTable:
+    """The by-value segment table of csrc/segments.cuh for `entries`, each
+    [n] or [C, n] int32 on `device`, in order.  Rows that lie a stride
+    apart are taken as they are; more than MAX_SEGMENTS entries are
+    concatenated into one."""
+    segs = []
+    for c in entries:
+        if c.ndim == 1:
+            c = c[None, :]
+        if c.ndim != 2 or c.shape[1] != n:
+            raise ValueError(f"column entry: expected [{n}] or [C, {n}], got "
+                             f"{tuple(c.shape)}")
+        if c.device != device or c.dtype != torch.int32:
+            raise TypeError(f"column entry: expected int32 on {device}, got "
+                            f"{c.dtype} on {c.device}")
+        if n > 1 and c.stride(1) != 1:
+            c = c.contiguous()
+        if c.shape[0]:
+            segs.append(c)
+    if len(segs) > MAX_SEGMENTS:
+        segs = [torch.cat(segs, dim=0)]
+    args = (_SegPtrs(*[c.data_ptr() for c in segs]),
+            _SegStrides(*[c.stride(0) for c in segs]),
+            _SegRows(*[c.shape[0] for c in segs]), len(segs)
+            ) if segs else (None, None, None, 0)
+    return SegmentTable(segs, sum(c.shape[0] for c in segs), args)

@@ -18,13 +18,13 @@ Semantics: standard unkeyed blake2s-256, bit-exact with hashlib.blake2s.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import as_int32_bits
 
 IV = np.array([
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -86,11 +86,6 @@ def _compress_rows(h, m, t: int, is_final: bool):
     return [h[i] ^ v[i] ^ v[i + 8] for i in range(8)]
 
 
-def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 with the same low 32 bits."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
-
-
 def hash_words_major_plain(words: torch.Tensor, byte_len: int) -> torch.Tensor:
     """Plain PyTorch version on any device; words is [W, N] with W at most
     16 * n_blocks, the words past W zero."""
@@ -107,15 +102,14 @@ def hash_words_major_plain(words: torch.Tensor, byte_len: int) -> torch.Tensor:
         t = byte_len if final else (b + 1) * 64
         m = [wd[16 * b + i] if 16 * b + i < w else zero for i in range(16)]
         h = _compress_rows(h, m, t, final)
-    return _as_int32_bits(torch.stack(h))
+    return as_int32_bits(torch.stack(h))
 
 
 def _n_blocks(byte_len: int) -> int:
     return max(1, -(-byte_len // 64))
 
 
-# csrc/blake2s.cu: kMaxSegments, kMaxTailLog
-MAX_SEGMENTS = 16
+# csrc/blake2s.cu: kMaxTailLog
 MAX_TAIL_LOG = 12
 # A layer of at most 2^TAIL_LOG nodes is hashed by the one-block tail
 # kernel, with every layer above it, in one launch (see `merkle_tail`).
@@ -124,10 +118,6 @@ MAX_TAIL_LOG = 12
 # enqueueing thread, which is what a prove waits for; measure_merkle.py
 # times both for every first level.
 TAIL_LOG = 11
-
-_SegPtrs = ctypes.c_void_p * MAX_SEGMENTS
-_SegStrides = ctypes.c_longlong * MAX_SEGMENTS
-_SegRows = ctypes.c_int * MAX_SEGMENTS
 
 
 def _launch_layer(prev: Optional[torch.Tensor], entries: Sequence[torch.Tensor],
@@ -143,34 +133,15 @@ def _launch_layer(prev: Optional[torch.Tensor], entries: Sequence[torch.Tensor],
                              f"{tuple(prev.shape)}")
         if prev.data_ptr() % 8:
             prev = prev.clone()  # the kernel loads 8-byte child pairs
-    segs = []
-    for c in entries:
-        if c.ndim == 1:
-            c = c[None, :]
-        if c.ndim != 2 or c.shape[1] != n:
-            raise ValueError(f"column entry: expected [{n}] or [C, {n}], got "
-                             f"{tuple(c.shape)}")
-        if c.device != device or c.dtype != torch.int32:
-            raise TypeError(f"column entry: expected int32 on {device}, got "
-                            f"{c.dtype} on {c.device}")
-        if n > 1 and c.stride(1) != 1:
-            c = c.contiguous()
-        if c.shape[0]:
-            segs.append(c)
-    if len(segs) > MAX_SEGMENTS:
-        segs = [torch.cat(segs, dim=0)]
-    rows = sum(c.shape[0] for c in segs) + (16 if prev is not None else 0)
+    table = kernels.segment_table(entries, n, device)
+    rows = table.rows + (16 if prev is not None else 0)
     if rows > 16 * _n_blocks(byte_len):
         raise ValueError("more words than the blocks of byte_len hold")
     out = torch.empty((8, n), dtype=torch.int32, device=device)
     if n:
-        table = (_SegPtrs(*[c.data_ptr() for c in segs]),
-                 _SegStrides(*[c.stride(0) for c in segs]),
-                 _SegRows(*[c.shape[0] for c in segs])
-                 ) if segs else (None, None, None)
         kernels.launch("blake2s_layer", counter, device,
-                       None if prev is None else prev.data_ptr(), *table,
-                       len(segs), out.data_ptr(), n, byte_len)
+                       None if prev is None else prev.data_ptr(), *table.args,
+                       out.data_ptr(), n, byte_len)
     return out
 
 

@@ -20,7 +20,7 @@ from ..poly.circle_poly import (CircleEvaluation, CirclePoly,
 from ..poly.twiddles import TwiddleTree
 from ..proof_of_work import grind_host
 from ..tracing import span
-from ..vcs import MerkleProver
+from ..vcs.ops import Blake2sMerkleOps
 from . import PcsConfig, TreeSubspan
 from .quotients import PointSample, compute_fri_quotients
 from .utils import TreeVec
@@ -31,7 +31,7 @@ class CommitmentSchemeProof:
     """reference pcs/prover.ts:159-168 (embedded Rust struct)."""
 
     config: PcsConfig
-    commitments: TreeVec  # of bytes
+    commitments: TreeVec  # of bytes (Blake2s) or FieldElement252
     sampled_values: TreeVec  # per tree: per column: List[QM31]
     decommitments: TreeVec  # of MerkleDecommitment
     queried_values: TreeVec  # per tree: List[M31]
@@ -58,7 +58,8 @@ class CommitmentTreeProver:
     """One committed set of polynomials (reference pcs/prover.ts:209-252)."""
 
     def __init__(self, polynomials: List[CirclePoly], log_blowup_factor: int,
-                 channel, twiddles: TwiddleTree, device):
+                 channel, twiddles: TwiddleTree, device,
+                 merkle_ops=Blake2sMerkleOps):
         self.polynomials = polynomials
         self.evaluations: List[CircleEvaluation] = [None] * len(polynomials)
         stacks: List[torch.Tensor] = []
@@ -78,7 +79,7 @@ class CommitmentTreeProver:
         with span("merkle"):
             # one [C, n] entry per size: the tree hashes same-size columns
             # in index order, which is the order of each stack's rows
-            self.commitment = MerkleProver.commit(stacks, device)
+            self.commitment = merkle_ops.commit(stacks, device)
         channel.mix_root(self.commitment.root())
 
     def decommit(self, queries: Dict[int, List[int]]):
@@ -119,19 +120,21 @@ class TreeBuilder:
 
 class CommitmentSchemeProver:
     """Commits trees and opens them (single device: `device` holds every
-    column the scheme commits)."""
+    column the scheme commits).  `merkle_ops` is the Merkle flavour
+    (vcs/ops.py)."""
 
     def __init__(self, config: PcsConfig, twiddles: TwiddleTree,
-                 device="cpu"):
+                 device="cpu", merkle_ops=Blake2sMerkleOps):
         self.config = config
         self.twiddles = twiddles
         self.device = torch.device(device)
+        self.merkle_ops = merkle_ops
         self.trees: TreeVec = TreeVec()
 
     def _commit(self, polynomials: List[CirclePoly], channel) -> None:
         self.trees.append(CommitmentTreeProver(
             polynomials, self.config.fri_config.log_blowup_factor, channel,
-            self.twiddles, self.device))
+            self.twiddles, self.device, self.merkle_ops))
 
     def tree_builder(self) -> TreeBuilder:
         return TreeBuilder(self, len(self.trees))
@@ -189,7 +192,8 @@ class CommitmentSchemeProver:
         # 3. FRI commitment phase.
         with span("fri_commit"):
             fri_prover = FriProver.commit_host(
-                channel, self.config.fri_config, quotients, self.twiddles)
+                channel, self.config.fri_config, quotients, self.twiddles,
+                merkle_ops=self.merkle_ops)
 
         # 4. Proof of work.
         with span("grind"):

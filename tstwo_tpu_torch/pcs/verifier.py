@@ -7,6 +7,7 @@ from typing import Dict, List
 from ..fields import QM31
 from ..fri import CirclePolyDegreeBound, FriVerificationError, FriVerifier
 from ..vcs import MerkleVerificationError, MerkleVerifier
+from ..vcs.ops import Blake2sMerkleOps
 from . import PcsConfig
 from .quotients import PointSample, fri_answers
 from .utils import TreeVec
@@ -20,20 +21,22 @@ class VerificationError(Exception):
 
 
 class CommitmentSchemeVerifier:
-    def __init__(self, config: PcsConfig):
+    def __init__(self, config: PcsConfig, merkle_ops=Blake2sMerkleOps):
         self.config = config
+        self.merkle_ops = merkle_ops
         self.trees: TreeVec = TreeVec()
 
     def column_log_sizes(self) -> TreeVec:
         return TreeVec(list(t.column_log_sizes) for t in self.trees)
 
-    def commit(self, commitment: bytes, log_sizes: List[int], channel) -> None:
+    def commit(self, commitment, log_sizes: List[int], channel) -> None:
         """Read a commitment root from the prover
         (reference pcs/verifier.ts:43-56)."""
         channel.mix_root(commitment)
         extended = [ls + self.config.fri_config.log_blowup_factor
                     for ls in log_sizes]
-        self.trees.append(MerkleVerifier(commitment, extended))
+        self.trees.append(MerkleVerifier(
+            commitment, extended, hasher=self.merkle_ops.hash_node))
 
     def verify_values(self, sampled_points: TreeVec, proof, channel) -> None:
         """reference pcs/verifier.ts:58-127 (embedded Rust verify_values)."""
@@ -49,7 +52,8 @@ class CommitmentSchemeVerifier:
 
         # FRI commitment phase.
         fri_verifier = FriVerifier.commit(
-            channel, self.config.fri_config, proof.fri_proof, bounds)
+            channel, self.config.fri_config, proof.fri_proof, bounds,
+            merkle_ops=self.merkle_ops)
 
         # Proof of work.
         channel.mix_u64(proof.proof_of_work)

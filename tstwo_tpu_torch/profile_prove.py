@@ -3,16 +3,18 @@
     python -m tstwo_tpu_torch.profile_prove --log-n 18 --seq 64
     python -m tstwo_tpu_torch.profile_prove --path logup --log-n 20
     python -m tstwo_tpu_torch.profile_prove --path gkr --log-n 20
+    python -m tstwo_tpu_torch.profile_prove --path poseidon --log-n 20
 
 `--path` picks the prove: a wide-Fibonacci AIR of 2^log_n rows x seq
-columns, the LogUp lookup AIR of 2^log_n rows, or a GKR batch of one
-GrandProduct and one LogUpGeneric instance of 2^log_n random values each.
+columns, the LogUp lookup AIR of 2^log_n rows, a GKR batch of one
+GrandProduct and one LogUpGeneric instance of 2^log_n random values each,
+or the basic AIR of 2^log_n rows under the Poseidon252 flavour.
 After one warm prove it runs two more: one under synchronised tracing
 spans (host wall time per prover phase, device work included), and one
 under torch.profiler (device time by kernel, and the device's busy share
 of the prove's wall time).  It also counts, per warm prove, the launches
 of each hand kernel (`kernels.LAUNCHES`), in all and inside
-`MerkleProver.commit`, and from the profile the `cat`, `pad`,
+`MerkleProver.commit` (of either flavour), and from the profile the `cat`, `pad`,
 `contiguous` and `clone` calls made inside `MerkleProver.commit` with
 their device time, and the span of those commits on the device's timeline
 (first to last kernel of each).  Every call of `evaluate_values` and
@@ -25,13 +27,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 
 COMMIT_RANGE = "MerkleProver.commit"
 CFFT_RANGE = "circle_poly.cfft_caller"
 GLUE_OPS = ("aten::cat", "aten::pad", "aten::contiguous", "aten::clone")
-HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle")
+HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle",
+                    "hades")
 
 
 def ops_inside(events, range_name: str, op_names) -> dict:
@@ -58,7 +62,8 @@ def ops_inside(events, range_name: str, op_names) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", default="wide_fibonacci",
-                        choices=("wide_fibonacci", "logup", "gkr"))
+                        choices=("wide_fibonacci", "logup", "gkr",
+                                 "poseidon"))
     parser.add_argument("--log-n", type=int, default=18)
     parser.add_argument("--seq", type=int, default=64)
     parser.add_argument("--top", type=int, default=12)
@@ -69,10 +74,12 @@ def main(argv=None) -> None:
 
     from . import kernels, tracing
     from .channel.blake2s import Blake2sChannel
+    from .examples.basic_air import prove_basic_air
     from .examples.logup_lookup import prove_logup_lookup
     from .examples.wide_fibonacci import prove_wide_fibonacci
     from .lookups.gkr import GRAND_PRODUCT, LOGUP_GENERIC, Layer, prove_batch
     from .lookups.mle import Mle
+    from .vcs.poseidon252_merkle import Poseidon252MerkleProver
     from .vcs.prover import MerkleProver
 
     if not torch.cuda.is_available():
@@ -96,6 +103,8 @@ def main(argv=None) -> None:
             prove_wide_fibonacci(args.log_n, args.seq, seed=0, device=device)
         elif args.path == "logup":
             prove_logup_lookup(args.log_n, seed=0, device=device)
+        elif args.path == "poseidon":
+            prove_basic_air(args.log_n, device=device, flavor="poseidon252")
         else:
             prove_batch(Blake2sChannel(), gkr_layers)
         torch.cuda.synchronize()
@@ -103,18 +112,20 @@ def main(argv=None) -> None:
 
     # every Merkle commit of the prove runs under a profiler range, and its
     # hand-kernel launches are counted apart
-    commit = MerkleProver.commit
     in_commit = dict.fromkeys(kernels.LAUNCHES, 0)
 
-    def counted_commit(*a, **kw):
-        before = dict(kernels.LAUNCHES)
-        with record_function(COMMIT_RANGE):
-            tree = commit(*a, **kw)
-        for name, count in kernels.LAUNCHES.items():
-            in_commit[name] = in_commit.get(name, 0) + count - before[name]
-        return tree
+    def counted(commit):
+        def counted_commit(*a, **kw):
+            before = dict(kernels.LAUNCHES)
+            with record_function(COMMIT_RANGE):
+                tree = commit(*a, **kw)
+            for name, count in kernels.LAUNCHES.items():
+                in_commit[name] = in_commit.get(name, 0) + count - before[name]
+            return tree
+        return staticmethod(counted_commit)
 
-    MerkleProver.commit = staticmethod(counted_commit)
+    for prover in (MerkleProver, Poseidon252MerkleProver):
+        prover.commit = counted(prover.commit)
 
     # the CFFT's callers run under a range as well, wherever they were
     # imported by name
@@ -175,6 +186,10 @@ def main(argv=None) -> None:
         "path": args.path,
         "shape": (f"2^{args.log_n} x {args.seq}"
                   if args.path == "wide_fibonacci" else f"2^{args.log_n}"),
+        "power_limit": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=False).stdout.strip(),
         "prove_s": {"warm_up": warm_s, "plain": plain_s,
                     "synced_spans": spans_wall_s, "profiled": profiled_s},
         "spans_s": dict(sorted(spans.items(), key=lambda kv: -kv[1])),

@@ -1,7 +1,8 @@
 """Proof-of-work grind: find the smallest nonce whose mixed digest has
 >= pow_bits trailing zeros (reference backend/cpu/grind.ts:31-42).
 
-Host-side scan: at the default pow_bits of 5 it takes ~32 Blake2s hashes.
+Host-side scan: at the default pow_bits of 5 it takes ~32 hashes of the
+channel's flavour (Blake2s or Poseidon252).
 """
 from __future__ import annotations
 

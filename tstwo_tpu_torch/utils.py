@@ -101,3 +101,11 @@ def entry_device(device=None):
 def to_numpy_u32(t) -> np.ndarray:
     """int32 tensor (any device) -> numpy uint32 array with the same bits."""
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def as_int32_bits(x):
+    """int64 tensor of values in [0, 2^32) -> int32 with the same low 32
+    bits."""
+    import torch
+
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)

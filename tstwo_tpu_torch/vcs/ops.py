@@ -5,7 +5,8 @@ A flavour bundles what the PCS/FRI layers need to stay hash-agnostic:
   commit(columns)                 device-batched Merkle tree prover
   hash_node(children, values)     host verifier-side node hash
   default_channel()               the matching Fiat-Shamir channel
-Only the Blake2s flavour is ported.
+`commit` takes the device for the tree without columns; a tree with
+columns lives where they do.
 """
 from __future__ import annotations
 
@@ -17,10 +18,10 @@ class Blake2sMerkleOps:
     name = "blake2s"
 
     @staticmethod
-    def commit(columns):
+    def commit(columns, device=None):
         from .prover import MerkleProver
 
-        return MerkleProver.commit(columns)
+        return MerkleProver.commit(columns, device)
 
     @staticmethod
     def hash_node(children, values):
@@ -35,4 +36,34 @@ class Blake2sMerkleOps:
         return Blake2sChannel()
 
 
-MERKLE_OPS = {"blake2s": Blake2sMerkleOps}
+class Poseidon252MerkleOps:
+    """Poseidon252 flavour (reference vcs/poseidon252_merkle.ts:19-56).
+    Roots are FieldElement252; layer hashing is the hand-written Hades
+    kernel on a CUDA device (ops/poseidon252.py), the transcript stays on
+    the host channel."""
+
+    name = "poseidon252"
+
+    @staticmethod
+    def commit(columns, device=None):
+        from .poseidon252_merkle import Poseidon252MerkleProver
+
+        return Poseidon252MerkleProver.commit(columns, device)
+
+    @staticmethod
+    def hash_node(children, values):
+        from .poseidon252_merkle import hash_node
+
+        return hash_node(children, values)
+
+    @staticmethod
+    def default_channel():
+        from ..channel.poseidon import Poseidon252Channel
+
+        return Poseidon252Channel()
+
+
+MERKLE_OPS = {
+    "blake2s": Blake2sMerkleOps,
+    "poseidon252": Poseidon252MerkleOps,
+}

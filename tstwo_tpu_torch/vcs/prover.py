@@ -25,7 +25,7 @@ from .utils import Peekable, next_decommitment_node
 class MerkleDecommitment:
     """Hash + column witness (reference vcs/verifier.ts:5-8)."""
 
-    hash_witness: List[bytes] = field(default_factory=list)
+    hash_witness: list = field(default_factory=list)  # bytes or FieldElement252
     column_witness: List[M31] = field(default_factory=list)
 
     def size_estimate(self) -> int:
@@ -86,6 +86,13 @@ def _gather(cols: Sequence[torch.Tensor], idxs: Sequence[int]):
                       for c in cols], dim=0)
 
 
+def empty_tree_device(device) -> torch.device:
+    """The device of a tree without columns: the caller's, never a guess."""
+    if device is None:
+        raise ValueError("a tree without columns needs its device")
+    return torch.device(device)
+
+
 def _to_host(parts: Sequence[torch.Tensor]):
     """Copy device tensors to the host in one transfer; numpy uint32 arrays
     of the same shapes."""
@@ -107,17 +114,25 @@ class MerkleProver:
 
     def __init__(self, layers: List[torch.Tensor]):
         self.layers = layers
-        self._root: Optional[bytes] = None
+        self._root = None
+
+    @staticmethod
+    def digest(words) -> bytes:
+        """A node of a layer (its 8 words on the host) as the proof holds
+        it; the Poseidon252 prover overrides this."""
+        return digest_words_to_bytes(words)
 
     @staticmethod
     def commit(columns: Sequence[torch.Tensor], device=None) -> "MerkleProver":
         """Entries of `columns` are single columns [n] or stacks [C, n] of
         C same-size columns; the tree hashes them in the given order within
-        each size, largest size first."""
+        each size, largest size first.  A tree lives where its columns do;
+        without columns it is the one node that hashes no value, on
+        `device`, which must then be given."""
         cols = sorted(columns, key=lambda c: -c.shape[-1])
         if not cols:
-            return MerkleProver([commit_on_layer(0, None, [],
-                                                 device or "cpu")])
+            return MerkleProver([commit_on_layer(
+                0, None, [], empty_tree_device(device))])
         max_log = int(cols[0].shape[-1]).bit_length() - 1
         min_log = int(cols[-1].shape[-1]).bit_length() - 1
         layers: List[Optional[torch.Tensor]] = [None] * (max_log + 1)
@@ -133,10 +148,9 @@ class MerkleProver:
                 break
         return MerkleProver(layers)
 
-    def root(self) -> bytes:
+    def root(self):
         if self._root is None:
-            self._root = digest_words_to_bytes(
-                to_numpy_u32(self.layers[0][:, 0]))
+            self._root = self.digest(to_numpy_u32(self.layers[0][:, 0]))
         return self._root
 
     def decommit(
@@ -172,8 +186,7 @@ class MerkleProver:
             for si, (node, witness_children, was_queried) in enumerate(
                     plan["steps"]):
                 for _ in witness_children:
-                    dec.hash_witness.append(
-                        digest_words_to_bytes(hashes[:, hi]))
+                    dec.hash_witness.append(self.digest(hashes[:, hi]))
                     hi += 1
                 node_values = ([M31(int(v)) for v in values[:, si]]
                                if values is not None else [])

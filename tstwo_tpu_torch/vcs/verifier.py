@@ -24,8 +24,9 @@ class MerkleVerificationError(Exception):
 
 @dataclass
 class MerkleVerifier:
-    root: bytes
+    root: object  # bytes (Blake2s) or FieldElement252 (Poseidon252)
     column_log_sizes: List[int]
+    hasher: object = hash_node  # hash_node(children, values) of the flavour
 
     def __post_init__(self):
         self.n_columns_per_log_size = Counter(self.column_log_sizes)
@@ -95,7 +96,7 @@ class MerkleVerifier:
                                 MerkleVerificationError.WITNESS_TOO_SHORT)
                         node_values.append(decommitment.column_witness[ci])
                         ci += 1
-                layer_total.append((node, hash_node(node_hashes, node_values)))
+                layer_total.append((node, self.hasher(node_hashes, node_values)))
             last_layer = layer_total
         if hi != len(decommitment.hash_witness):
             raise MerkleVerificationError(MerkleVerificationError.WITNESS_TOO_LONG)
