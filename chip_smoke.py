@@ -5,12 +5,18 @@
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card at the shapes its path gives it, then
-drives six paths, each with the launch counts set to 0 just before it and
+drives seven paths, each with the launch counts set to 0 just before it and
 read just after:
 
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
     committed JAX proof, a 2^12 x 32 CUDA proof against the CPU one, then
-    proves and verifies 2^16 x 32 and 2^18 x 64;
+    proves and verifies 2^16 x 32 and 2^18 x 64 (pow_bits 5: the grind
+    stays on the host, and the grind kernel must not launch);
+  * the proof-of-work grind, host against card at pow_bits 12, 16, 20
+    and 26, then wide Fibonacci 2^18 x 64 at 96 bits of security
+    (stwo-cairo's secure_pcs_config: pow_bits 26, 70 queries), which must
+    launch the grind kernel, its nonce held against the plain scan on the
+    card;
   * the roofline probes (tstwo_tpu_torch/measure_roofline.py), which run
     the M31 probe kernels;
   * LogUp: the golden 2^8 proof against the committed JAX proof, 2^12 CUDA
@@ -73,6 +79,8 @@ REPLACES = {
                     "tstwo_tpu/ops/pallas/interleave.py:50",
     "merkle_tail": "tstwo_tpu/ops/blake2s.py:262, "
                    "tstwo_tpu/ops/pallas/interleave.py:50",
+    "blake2s_grind": "tstwo_tpu/ops/blake2s.py:262 (via "
+                     "tstwo_tpu/proof_of_work.py:29)",
     "deinterleave": "tstwo_tpu/ops/pallas/interleave.py:50",
     "m31_mul": "tstwo_tpu/ops/pallas/m31_kernels.py:58",
     "m31_mul_chain": "tstwo_tpu/ops/pallas/m31_kernels.py:90",
@@ -342,6 +350,40 @@ def compare_kernels(device):
               n_bytes=4 * 8 * ((1 << log) + nodes),
               n_ops=B2S_OPS_PER_BLOCK * nodes)
 
+    # the proof-of-work grind: the kernel's least hit against the plain
+    # scan on the card, from three channel digests at pow_bits 12, 16 and
+    # 20 over 2^20 nonces and over a range across nonce 2^32; the bound
+    # counts the nonces up to the hit, all the function needs (the kernel's
+    # blocks past a hit return at once).  Then a launch as a pow_bits-26
+    # grind makes it, 2^24 nonces, at a pow_bits no digest reaches (128:
+    # all of words 0-3 zero), so that every nonce is hashed.
+    for label, words in grind_digests():
+        for pow_bits, start, count in [(12, 0, 1 << 20), (16, 0, 1 << 20),
+                                       (20, 0, 1 << 20),
+                                       (16, (1 << 32) - 3, 1 << 20)]:
+            if start and label != "fresh":
+                continue
+            hit = blake2s.grind_batch_plain(words, start, count, pow_bits,
+                                            device)
+            needed = count if hit < 0 else hit - start + 1
+            check("blake2s_grind",
+                  f"{label} pow_bits {pow_bits}, [{start}, +2^20): hit "
+                  f"{hit}",
+                  lambda: blake2s.grind_hit_cuda(words, start, count,
+                                                 pow_bits, device),
+                  lambda: blake2s.grind_hit_plain(words, start, count,
+                                                  pow_bits, device),
+                  "blake2s.cu", n_bytes=4 * 8 + 8,
+                  n_ops=B2S_OPS_PER_BLOCK * needed,
+                  extra={"nonces_needed": needed})
+    words = grind_digests()[0][1]
+    check("blake2s_grind", "fresh pow_bits 128, 2^24 nonces, all hashed",
+          lambda: blake2s.grind_hit_cuda(words, 0, 1 << 24, 128, device),
+          lambda: blake2s.grind_hit_plain(words, 0, 1 << 24, 128, device),
+          "blake2s.cu", n_bytes=4 * 8 + 8,
+          n_ops=B2S_OPS_PER_BLOCK * (1 << 24),
+          extra={"nonces_needed": 1 << 24})
+
     # wide Fibonacci 2^16 FRI layer; the LogUp 2^20 prove's largest
     # deinterleaves; the first halving of a GKR 2^20 layer.  The PyTorch
     # call for the same function is the two strided copies.
@@ -432,6 +474,20 @@ def compare_kernels(device):
     for twiddles in (tree, tree22):
         twiddles.drop_device_copies()
     return rows
+
+
+def grind_digests() -> list:
+    """(label, digest words) of three channel states: fresh, after a u64,
+    after a root."""
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.ops.blake2s import digest_bytes_to_words
+
+    fresh, mixed, rooted = Blake2sChannel(), Blake2sChannel(), \
+        Blake2sChannel()
+    mixed.mix_u64(0x123456789)
+    rooted.mix_root(bytes(range(32)))
+    return [(label, digest_bytes_to_words(ch.digest)) for label, ch in
+            (("fresh", fresh), ("mix_u64", mixed), ("mix_root", rooted))]
 
 
 def proof_json(proof) -> str:
@@ -530,7 +586,8 @@ def main() -> None:
               f"{time.perf_counter() - t1:.3f} s;"
               f" peak device memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
-    launches = launch_counts("wide_fibonacci", MAIN_PATH_KERNELS)
+    launches = launch_counts("wide_fibonacci", MAIN_PATH_KERNELS,
+                             forbidden=("blake2s_grind",))
     counts = {
         "cfft_forward": launches["cfft_forward"],
         "cfft_inverse": launches["cfft_inverse"],
@@ -543,12 +600,16 @@ def main() -> None:
         "deinterleave": launches["deinterleave"],
     }
 
-    # 7. the roofline probes: the M31 probe kernels' path
+    # 7-8. the grind, host against card; the 96-bit prove, which runs it
+    grind_rates(device)
+    counts["blake2s_grind"] = secure_prove(device)["blake2s_grind"]
+
+    # 9. the roofline probes: the M31 probe kernels' path
     launches = roofline(device)
     counts.update(m31_mul=launches["m31_mul"],
                   m31_mul_chain=launches["m31_mul_chain"])
 
-    # 8-10. LogUp, 11-12. GKR, 13-16. the Poseidon252 flavour and sponge
+    # 10-12. LogUp, 13-14. GKR, 15-18. the Poseidon252 flavour and sponge
     logup_phases(device)
     gkr_phases(device)
     counts["poseidon_merkle_layer"] = poseidon_phases(device)[
@@ -565,9 +626,12 @@ def main() -> None:
 
 # what a prove through the commitment scheme must launch: both CFFTs, leaf
 # hashes, node layers that read their child pairs, the one-launch top of a
-# tree, and the folds' deinterleave
+# tree, and the folds' deinterleave.  The grind kernel (`blake2s_grind`)
+# runs only where pow_bits >= 12 (proof_of_work.grind): the pow_bits-5
+# proves forbid it, the 96-bit prove requires it beside these.
 MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
                      "merkle_layer", "merkle_tail", "deinterleave")
+SECURE_POW_BITS, SECURE_QUERIES = 26, 70  # stwo-cairo's secure_pcs_config
 
 
 def launch_counts(path: str, required, forbidden=()) -> dict:
@@ -597,8 +661,127 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def grind_rates(device) -> None:
+    """Phase 7: `grind` on the card against `grind_host` on this machine's
+    host, from the channel after mix_u64(pow_bits), at pow_bits 12, 16, 20
+    (the same nonce; host us a nonce) and 26 (the card alone: ~2^26 host
+    hashes would take minutes, so the host's time there is its rate at 20
+    times the nonces)."""
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.proof_of_work import grind, grind_host
+
+    t0 = time.perf_counter()
+    host_us = None
+    for pow_bits in (12, 16, 20, 26):
+        ch = Blake2sChannel()
+        ch.mix_u64(pow_bits)
+        grind(ch, pow_bits, device=device)  # warm
+        walls = []
+        for _ in range(3):
+            nonce, wall = timed(lambda: grind(ch, pow_bits, device=device))
+            walls.append(wall)
+        if pow_bits <= 20:
+            t1 = time.perf_counter()
+            want = grind_host(ch, pow_bits)
+            host_s = time.perf_counter() - t1
+            host_us = host_s / (want + 1) * 1e6
+            if nonce != want:
+                fail(f"grind at pow_bits {pow_bits}: card {nonce}, host {want}")
+            host = (f"host {host_s * 1e3:.3f} ms ({host_us:.3f} us a "
+                    "nonce), the same nonce")
+        else:
+            host = (f"host not run: ~{host_us * (nonce + 1) / 1e6:.1f} s at "
+                    "its pow_bits-20 rate")
+        print(f"  grind pow_bits {pow_bits}: nonce {nonce}; card "
+              f"{min(walls) * 1e3:.3f} ms (best of 3, synchronised; "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in walls)}); {host}",
+              flush=True)
+    phase("grind", time.perf_counter() - t0,
+          "grind on the card == grind_host at pow_bits 12, 16, 20")
+
+
+def secure_prove(device) -> dict:
+    """Phase 8: wide Fibonacci 2^18 x 64 under stwo-cairo's
+    secure_pcs_config (pow_bits 26, log blowup 1, 70 queries: 96 bits):
+    two proves, a third under synchronised spans (the grind span beside
+    the others), the port's verifier, and the nonce held against the plain
+    grind scanned on the card over [0, nonce].  Returns the launch counts
+    of the proves."""
+    import torch
+
+    from tstwo_tpu_torch import kernels, tracing
+    from tstwo_tpu_torch.examples.wide_fibonacci import (
+        prove_wide_fibonacci, verify_wide_fibonacci)
+    from tstwo_tpu_torch.fri import FriConfig
+    from tstwo_tpu_torch.ops.blake2s import (digest_bytes_to_words,
+                                             grind_batch_plain)
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.pcs import prover as pcs_prover
+
+    config = PcsConfig(SECURE_POW_BITS, FriConfig(0, 1, SECURE_QUERIES))
+    grinds = []  # (digest words, nonce) of every grind of the proves
+    grind = pcs_prover.grind
+
+    def recorded(channel, pow_bits, **kw):
+        nonce = grind(channel, pow_bits, **kw)
+        grinds.append((digest_bytes_to_words(channel.digest), nonce))
+        return nonce
+
+    def prove():
+        return prove_wide_fibonacci(18, 64, config, seed=0, device=device)
+
+    pcs_prover.grind = recorded
+    try:
+        kernels.reset_launches()
+        walls = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats(device)
+            (proof, comp, cfg), wall = timed(prove)
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated(device)
+        tracing.reset()
+        tracing.enable()
+        try:
+            _, spans_wall = timed(prove)
+        finally:
+            tracing.disable()
+    finally:
+        pcs_prover.grind = grind
+    launches = launch_counts("wide_fibonacci secure",
+                             MAIN_PATH_KERNELS + ("blake2s_grind",))
+    spans = tracing.totals()
+    _, verify_s = timed(lambda: verify_wide_fibonacci(proof, comp, cfg, 18))
+    nonce = proof.commitment_scheme_proof.proof_of_work
+    if len({(tuple(w), n) for w, n in grinds}) != 1 or grinds[0][1] != nonce:
+        fail(f"secure proves ground {grinds}, proof nonce {nonce}")
+    # the plain version on the card, in chunks, from nonce 0 up
+    t0, words, found, start = time.perf_counter(), grinds[0][0], -1, 0
+    while found < 0 and start <= nonce:
+        count = min(1 << 22, nonce + 1 - start)
+        found = grind_batch_plain(words, start, count, SECURE_POW_BITS,
+                                  device)
+        start += count
+    scan_s = time.perf_counter() - t0
+    if found != nonce:
+        fail(f"secure prove nonce {nonce}; the plain scan found {found}")
+    grind_s = spans.get("grind", 0.0)
+    phase(f"prove 18x64 secure", walls[1],
+          f"pow_bits {SECURE_POW_BITS}, {SECURE_QUERIES} queries: two proves "
+          f"{walls[0]:.3f} s, {walls[1]:.3f} s; under spans {spans_wall:.3f}"
+          f" s, grind span {grind_s * 1e3:.3f} ms "
+          f"({100 * grind_s / spans_wall:.2f}% of it); nonce {nonce} == "
+          f"plain scan on the card ({scan_s:.2f} s); verified in "
+          f"{verify_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB; "
+          f"proof {proof.size_estimate()} bytes")
+    print("  spans (ms): " + json.dumps(
+        {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
+                                                 key=lambda kv: -kv[1])}),
+          flush=True)
+    return launches
+
+
 def roofline(device) -> dict:
-    """Phase 7: tstwo_tpu_torch.measure_roofline on the card, one figure a
+    """Phase 9: tstwo_tpu_torch.measure_roofline on the card, one figure a
     line; returns the launch counts of that path."""
     from tstwo_tpu_torch import kernels
     from tstwo_tpu_torch.measure_roofline import measure
@@ -619,7 +802,7 @@ def roofline(device) -> dict:
 
 
 def logup_phases(device) -> dict:
-    """Phases 8-10: the LogUp lookup AIR (three trees, LogUp interaction
+    """Phases 10-12: the LogUp lookup AIR (three trees, LogUp interaction
     trace).  Golden 2^8 proof, 2^12 CUDA == CPU for both `pairs` modes,
     then two proves each at 2^16 and 2^20 with the launches counted."""
     import torch
@@ -663,7 +846,8 @@ def logup_phases(device) -> dict:
               f"two proves {walls[0]:.3f} s, {walls[1]:.3f} s; verified in "
               f"{verify_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB;"
               f" proof {proof.size_estimate()} bytes")
-    return launch_counts("logup", MAIN_PATH_KERNELS)
+    return launch_counts("logup", MAIN_PATH_KERNELS,
+                         forbidden=("blake2s_grind",))
 
 
 GKR_KINDS = ("GrandProduct", "LogUpGeneric", "LogUpMultiplicities",
@@ -716,7 +900,7 @@ def flat_gkr_proof(proof) -> list:
 
 
 def gkr_phases(device) -> dict:
-    """Phases 11-12: GKR batch proofs.  2^12 CUDA == CPU for each layer
+    """Phases 13-14: GKR batch proofs.  2^12 CUDA == CPU for each layer
     kind, then a GrandProduct + LogUpGeneric batch at 2^20: two proves,
     the batch verifier, and its claims against the input MLEs."""
     import torch
@@ -817,7 +1001,7 @@ POSEIDON_MID_LOG = 6  # the CPU-plain prove there takes about half a minute
 
 
 def poseidon_phases(device) -> dict:
-    """Phases 13-15: the basic AIR under the Poseidon252 flavour.  Golden
+    """Phases 15-17: the basic AIR under the Poseidon252 flavour.  Golden
     2^4 proof, 2^6 CUDA == CPU, then two proves each at 2^16 and 2^20 rows
     with the launches counted; every proof verified on the host, whose
     hash_node is Python-int Hades and shares nothing with the kernel."""
@@ -877,11 +1061,12 @@ def poseidon_phases(device) -> dict:
         "poseidon",
         ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
          "deinterleave"),
-        forbidden=("blake2s", "merkle_layer", "merkle_tail"))
+        forbidden=("blake2s", "merkle_layer", "merkle_tail",
+                   "blake2s_grind"))
 
 
 def poseidon_sponge(device) -> dict:
-    """Phase 16: `poseidon_hash_many` of 2^16 rows of three felts on the
+    """Phase 18: `poseidon_hash_many` of 2^16 rows of three felts on the
     card (two Hades launches): every row against the same sponge around
     the plain permutation, rows 0-7 against the host's hash."""
     import numpy as np

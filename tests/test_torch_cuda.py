@@ -332,12 +332,87 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     leaves = pos.merkle_layer(None, [x])
     pos.merkle_layer(leaves, [])
     pos.poseidon_hash_many([leaves, leaves, leaves])  # two sponge steps
+    blake2s.grind_batch(blake2s.digest_bytes_to_words(b"\x00" * 32), 0, 64,
+                        1, device)
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
                                 "blake2s": 2, "merkle_layer": 1,
-                                "merkle_tail": 1, "deinterleave": 1,
+                                "merkle_tail": 1, "blake2s_grind": 1,
+                                "deinterleave": 1,
                                 "m31_mul": 1, "m31_mul_chain": 1,
                                 "hades_permutation": 2,
                                 "poseidon_merkle_layer": 2}
+
+
+def _grind_digests():
+    """Channel digests of a few transcript states."""
+    import hashlib
+
+    return [b"\x00" * 32] + [hashlib.blake2s(bytes([i])).digest()
+                              for i in range(3)]
+
+
+@pytest.mark.parametrize("pow_bits", [0, 1, 8, 10, 12, 14, 16, 60])
+def test_grind_kernel_matches_plain(device, pow_bits):
+    """The least hit of a launch of 2^16 nonces (or -1), from several
+    digests; at small pow_bits many blocks hit and the least must win."""
+    for digest in _grind_digests():
+        words = blake2s.digest_bytes_to_words(digest)
+        want = blake2s.grind_batch_plain(words, 0, 1 << 16, pow_bits, device)
+        assert blake2s.grind_batch_cuda(words, 0, 1 << 16, pow_bits,
+                                        device) == want
+        # a start that is no multiple of the block
+        want = blake2s.grind_batch_plain(words, 1000, 3000, pow_bits, device)
+        assert blake2s.grind_batch_cuda(words, 1000, 3000, pow_bits,
+                                        device) == want
+
+
+@pytest.mark.parametrize("start,count,pow_bits", [
+    ((1 << 32) - 3, 1 << 14, 8), ((1 << 32) - 3, 2, 0),
+    ((1 << 32) - 3, 1 << 16, 14), ((7 << 40) + 5, 1 << 12, 9)])
+def test_grind_kernel_near_2_32_matches_plain(device, start, count, pow_bits):
+    words = blake2s.digest_bytes_to_words(_grind_digests()[1])
+    want = blake2s.grind_batch_plain(words, start, count, pow_bits, device)
+    assert want >= 0
+    assert blake2s.grind_batch_cuda(words, start, count, pow_bits,
+                                    device) == want
+
+
+def test_grind_on_the_card_equals_the_host(device):
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.proof_of_work import grind, grind_device, grind_host
+
+    for pow_bits in (12, 16):
+        ch = Blake2sChannel()
+        ch.mix_u64(pow_bits)
+        before = ch.clone()
+        want = grind_host(ch, pow_bits)
+        kernels.reset_launches()
+        assert grind(ch, pow_bits, device=device) == want
+        assert kernels.LAUNCHES["blake2s_grind"] >= 1
+        assert grind_device(ch, pow_bits, device, batch=1 << 10) == want
+        assert ch == before
+
+
+def test_grind_wrapper_guards(device):
+    words = blake2s.digest_bytes_to_words(b"\x00" * 32)
+    with pytest.raises(ValueError):
+        blake2s.grind_batch_cuda(words, 0, 0, 1, device)
+    with pytest.raises(ValueError):
+        blake2s.grind_batch_cuda(words, 0, 8, 1, "cpu")
+
+
+def test_prove_with_grinding_on_the_card_equals_the_cpu_prove(device):
+    from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
+    from tstwo_tpu_torch.fri import FriConfig
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.serialize import proof_to_dict
+
+    config = PcsConfig(16, FriConfig(0, 1, 8))
+    kernels.reset_launches()
+    card = proof_to_dict(prove_wide_fibonacci(8, 8, config, device=device)[0])
+    assert kernels.LAUNCHES["blake2s_grind"] >= 1
+    assert card == proof_to_dict(prove_wide_fibonacci(8, 8, config,
+                                                      device="cpu")[0])
 
 
 P252 = (1 << 251) + 17 * (1 << 192) + 1

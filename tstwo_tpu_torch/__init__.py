@@ -2,9 +2,10 @@
 
 The Blake2s prove -> verify path of the JAX package, on torch tensors:
 columns are int32 tensors of canonical M31 values on one device.  On a
-CUDA device the circle FFT, the batched Blake2s and the even/odd
-deinterleave run as hand-written CUDA kernels (csrc/, built with nvcc at
-first use); on the CPU they run as their plain PyTorch versions.  Proofs
+CUDA device the circle FFT, the batched Blake2s (Merkle layers and the
+proof-of-work grind) and the even/odd deinterleave run as hand-written
+CUDA kernels (csrc/, built with nvcc at first use); on the CPU they run as
+their plain PyTorch versions.  Proofs
 are byte-identical to the JAX package's.
 
 Layers:

@@ -1,5 +1,5 @@
-// Batched Blake2s-256 of N equal-length messages, word-major, and the
-// Merkle layers built from it.
+// Batched Blake2s-256 of N equal-length messages, word-major, the Merkle
+// layers built from it, and the proof-of-work grind (blake2s_grind_kernel).
 //
 // Replaces tstwo_tpu/ops/blake2s.py::_hash_words_major_pallas_impl
 // (kernel bodies _wm_kernel and _wm_kernel_fori) and, on the Merkle path,
@@ -204,6 +204,48 @@ merkle_tail_kernel(const uint32_t* __restrict__ prev, uint32_t* __restrict__ out
   }
 }
 
+// Proof-of-work grind: thread i hashes nonce = start + i, the one-block
+// 40-byte message digest || LE64(nonce) (t = 40, final), and counts the
+// trailing zeros of digest words 0-3 as one LE u128 (128 when all four are
+// zero).  A nonce with at least pow_bits of them goes into *best by
+// atomicMin, so the least hit of the launch wins whichever block finds its
+// hit first.  *best starts at all ones; a block whose first nonce lies
+// above it returns at once (a hit below exists).
+//
+// Replaces tstwo_tpu/proof_of_work.py::_grind_batch around
+// tstwo_tpu/ops/blake2s.py::_hash_words_major_pallas_impl: the [10, N]
+// message it builds is never materialised here.  The digest words are a
+// by-value argument, every message word past the nonce a zero constant:
+// one compress of integer operations per nonce and 8 bytes written for the
+// whole launch, so the integer lanes bound it, as they bound the layers.
+struct GrindDigest {
+  uint32_t w[8];
+};
+
+__global__ void __launch_bounds__(kThreads)
+blake2s_grind_kernel(const GrindDigest digest, unsigned long long start,
+                     long long count, int pow_bits,
+                     unsigned long long* __restrict__ best) {
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
+  if (*reinterpret_cast<volatile unsigned long long*>(best) <
+      start + static_cast<unsigned long long>(first))
+    return;
+  const long long i = first + threadIdx.x;
+  if (i >= count) return;
+  const unsigned long long nonce = start + static_cast<unsigned long long>(i);
+  uint32_t m[16] = {digest.w[0], digest.w[1], digest.w[2], digest.w[3],
+                    digest.w[4], digest.w[5], digest.w[6], digest.w[7],
+                    static_cast<uint32_t>(nonce), static_cast<uint32_t>(nonce >> 32),
+                    0u, 0u, 0u, 0u, 0u, 0u};
+  uint32_t h[8] = B2S_H0;
+  compress(h, m, 40, true);
+  int tz = 128;
+#pragma unroll
+  for (int w = 3; w >= 0; --w)
+    if (h[w] != 0) tz = 32 * w + __ffs(h[w]) - 1;
+  if (tz >= pow_bits) atomicMin(best, nonce);
+}
+
 }  // namespace
 
 // One layer of n messages.  prev: the child layer [8, 2n] (8-byte aligned)
@@ -257,5 +299,24 @@ extern "C" int tstwo_merkle_tail(const int32_t* prev, int32_t* out, int log,
   const int threads = nodes < kTailThreads ? (nodes + 31) / 32 * 32 : kTailThreads;
   merkle_tail_kernel<<<1, threads, shared, stream>>>(
       reinterpret_cast<const uint32_t*>(prev), reinterpret_cast<uint32_t*>(out), log);
+  return cudaGetLastError();
+}
+
+// The least nonce in [start, start + count) whose digest has at least
+// pow_bits trailing zeros goes into *best (device, u64), which the caller
+// presets to all ones; it stays so if there is none.  digest: 8 host words
+// (u32) of the channel digest, passed to the kernel by value.  count <=
+// 2^40, start + count <= 2^64.
+extern "C" int tstwo_blake2s_grind(const uint32_t* digest, unsigned long long start,
+                                   long long count, int pow_bits,
+                                   unsigned long long* best, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (digest == nullptr || best == nullptr || count <= 0 || count > (1LL << 40) ||
+      pow_bits < 0 || start + static_cast<unsigned long long>(count - 1) < start)
+    return cudaErrorInvalidValue;
+  GrindDigest d;
+  for (int w = 0; w < 8; ++w) d.w[w] = digest[w];
+  const unsigned grid = static_cast<unsigned>((count + kThreads - 1) / kThreads);
+  blake2s_grind_kernel<<<grid, kThreads, 0, stream>>>(d, start, count, pow_bits, best);
   return cudaGetLastError();
 }

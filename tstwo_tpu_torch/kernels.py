@@ -10,7 +10,8 @@ reuses the library.  Importing this module needs neither CUDA nor nvcc.
 Each kernel counts its launches in `LAUNCHES`: the wrappers in ops/fft.py
 (forward and inverse CFFT apart), ops/blake2s.py (a layer of messages
 without children as `blake2s`, a Merkle layer that reads its child pairs
-as `merkle_layer`, the one-block top of a tree as `merkle_tail`),
+as `merkle_layer`, the one-block top of a tree as `merkle_tail`, a batch
+of proof-of-work nonces as `blake2s_grind`),
 ops/fri_ops.py, ops/m31_kernels.py and ops/poseidon252.py (the Hades
 permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
 as `poseidon_merkle_layer`) add one per call of the C entry point, and
@@ -48,6 +49,9 @@ _SIGNATURES = {
                             ctypes.c_longlong, ctypes.c_longlong, _VP),
     # prev, out, log, stream
     "tstwo_merkle_tail": (_VP, _VP, ctypes.c_int, _VP),
+    # digest (8 host words), start, count, pow_bits, best, stream
+    "tstwo_blake2s_grind": (_VP, ctypes.c_ulonglong, ctypes.c_longlong,
+                            ctypes.c_int, _VP, _VP),
     # src, even, odd, pairs, stream
     "tstwo_deinterleave": (_VP, _VP, _VP, ctypes.c_longlong, _VP),
     # a, b, out, n, stream
@@ -74,7 +78,8 @@ _QUERIES = {
 }
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
-            "merkle_layer": 0, "merkle_tail": 0, "deinterleave": 0,
+            "merkle_layer": 0, "merkle_tail": 0, "blake2s_grind": 0,
+            "deinterleave": 0,
             "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
             "poseidon_merkle_layer": 0}
 

@@ -7,12 +7,12 @@ hand-written kernels of csrc/blake2s.cu; a CPU tensor through the plain
 versions, which compute in int64 and mask to 32 bits after every add and
 shift (torch's >> on a negative int32 is arithmetic).
 
-Three entry points, each with its `_cuda` and `_plain` version:
+Four entry points, each with its `_cuda` and `_plain` version:
 `hash_words_major` (N messages from their words), `merkle_layer` (a Merkle
 layer from the child layer's pairs and the columns that join there, read
-where they lie: no deinterleave, concatenation or padding on the device)
-and `merkle_tail` (every small layer of a tree down to the root in one
-launch).
+where they lie: no deinterleave, concatenation or padding on the device),
+`merkle_tail` (every small layer of a tree down to the root in one
+launch) and `grind_batch` (the least proof-of-work nonce of a range).
 
 Semantics: standard unkeyed blake2s-256, bit-exact with hashlib.blake2s.
 """
@@ -260,3 +260,97 @@ def digest_words_to_bytes(words) -> bytes:
 
 def digest_bytes_to_words(digest: bytes) -> np.ndarray:
     return np.frombuffer(digest, dtype="<u4").copy()
+
+
+# Message of a proof-of-work nonce: the channel digest's 8 words, then the
+# nonce as two LE words (proof_of_work.py; tstwo_tpu/proof_of_work.py:29-53).
+GRIND_BYTE_LEN = 40
+
+
+def grind_trailing_zeros(digests: torch.Tensor) -> torch.Tensor:
+    """Trailing zeros of digest words 0-3 of [8, N] int32 digests, read as
+    one LE u128 (128 when all four are zero), as int64 [N]
+    (`Blake2sChannel.trailing_zeros`)."""
+    tz = torch.zeros(digests.shape[1], dtype=torch.int64,
+                     device=digests.device)
+    carry = torch.ones_like(tz, dtype=torch.bool)
+    for w in range(4):
+        d = digests[w].to(torch.int64) & _MASK
+        x, word_tz = d, torch.zeros_like(tz)
+        for s in (16, 8, 4, 2, 1):  # halving search for the lowest set bit
+            low_zero = (x & ((1 << s) - 1)) == 0
+            word_tz = word_tz + torch.where(low_zero, s, 0)
+            x = torch.where(low_zero, x >> s, x)
+        word_tz = word_tz + (x == 0).to(torch.int64)  # 32 when d == 0
+        tz = tz + torch.where(carry, word_tz, 0)
+        carry = carry & (d == 0)
+    return tz
+
+
+def _grind_args(digest_words, start: int, count: int, pow_bits: int):
+    words = np.asarray(digest_words, dtype=np.uint64)
+    if words.shape != (8,) or (words > _MASK).any():
+        raise ValueError("digest_words: expected 8 u32 words")
+    if count <= 0 or start < 0 or start + count > 1 << 63 or pow_bits < 0:
+        raise ValueError(f"grind range [{start}, {start} + {count}) or "
+                         f"pow_bits {pow_bits} out of range")
+    return words.astype(np.uint32)
+
+
+def grind_hit_plain(digest_words, start: int, count: int, pow_bits: int,
+                    device="cpu") -> torch.Tensor:
+    """Plain PyTorch version on `device`: the [10, count] messages, their
+    digests by `hash_words_major_plain`, the trailing zeros in int64, and
+    the first nonce with >= pow_bits of them as an int64 [1] tensor on
+    `device` (-1 if none), without a wait for the device."""
+    words = _grind_args(digest_words, start, count, pow_bits)
+    nonces = start + torch.arange(count, dtype=torch.int64, device=device)
+    msg = torch.cat([
+        torch.from_numpy(words.astype(np.int64)).to(device)[:, None]
+        .expand(8, count), (nonces & _MASK)[None, :], (nonces >> 32)[None, :]])
+    hit = grind_trailing_zeros(
+        hash_words_major_plain(msg, GRIND_BYTE_LEN)) >= pow_bits
+    first = torch.argmax(hit.to(torch.int8))  # the first of the maxima
+    return torch.where(hit[first], nonces[first], -1).reshape(1)
+
+
+def grind_hit_cuda(digest_words, start: int, count: int, pow_bits: int,
+                   device) -> torch.Tensor:
+    """One launch of csrc/blake2s.cu's grind kernel over the nonces [start,
+    start + count) on CUDA `device`: the least hit as an int64 [1] tensor
+    on the device (-1 if none), not waited for."""
+    words = _grind_args(digest_words, start, count, pow_bits)
+    device = torch.device(device)
+    if not kernels.is_cuda(device):
+        raise ValueError(f"expected a CUDA device, got {device}")
+    best = torch.full((1,), -1, dtype=torch.int64, device=device)  # all ones
+    kernels.launch("blake2s_grind", "blake2s_grind", device,
+                   words.ctypes.data, start, count, pow_bits, best.data_ptr())
+    return best
+
+
+def grind_batch_plain(digest_words, start: int, count: int, pow_bits: int,
+                      device="cpu") -> int:
+    """`grind_hit_plain` read back: the first hit, or -1."""
+    return int(grind_hit_plain(digest_words, start, count, pow_bits,
+                               device).item())
+
+
+def grind_batch_cuda(digest_words, start: int, count: int, pow_bits: int,
+                     device) -> int:
+    """`grind_hit_cuda` and an 8-byte read of the least hit, or -1."""
+    return int(grind_hit_cuda(digest_words, start, count, pow_bits,
+                              device).item())
+
+
+def grind_batch(digest_words, start: int, count: int, pow_bits: int,
+                device="cpu") -> int:
+    """The least nonce in [start, start + count) whose message digest ||
+    LE64(nonce) hashes to >= pow_bits trailing zeros, or -1.
+    `digest_words`: the channel digest as 8 u32 words
+    (`digest_bytes_to_words`).  A CUDA device launches the kernel, the CPU
+    runs the plain version."""
+    device = torch.device(device)
+    if kernels.is_cuda(device):
+        return grind_batch_cuda(digest_words, start, count, pow_bits, device)
+    return grind_batch_plain(digest_words, start, count, pow_bits, device)

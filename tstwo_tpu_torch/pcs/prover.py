@@ -18,7 +18,7 @@ from ..poly.circle_poly import (CircleEvaluation, CirclePoly,
                                 eval_columns_at_point, evaluate_values,
                                 interpolate_values)
 from ..poly.twiddles import TwiddleTree
-from ..proof_of_work import grind_host
+from ..proof_of_work import grind
 from ..tracing import span
 from ..vcs.ops import Blake2sMerkleOps
 from . import PcsConfig, TreeSubspan
@@ -197,7 +197,8 @@ class CommitmentSchemeProver:
 
         # 4. Proof of work.
         with span("grind"):
-            proof_of_work = grind_host(channel, self.config.pow_bits)
+            proof_of_work = grind(channel, self.config.pow_bits,
+                                  device=self.device)
         channel.mix_u64(proof_of_work)
 
         # 5. FRI decommitment + Merkle decommitments.

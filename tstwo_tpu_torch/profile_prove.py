@@ -4,11 +4,15 @@
     python -m tstwo_tpu_torch.profile_prove --path logup --log-n 20
     python -m tstwo_tpu_torch.profile_prove --path gkr --log-n 20
     python -m tstwo_tpu_torch.profile_prove --path poseidon --log-n 20
+    python -m tstwo_tpu_torch.profile_prove --log-n 18 --seq 64 \
+        --pow-bits 26 --n-queries 70     # 96 bits: stwo-cairo's secure config
 
 `--path` picks the prove: a wide-Fibonacci AIR of 2^log_n rows x seq
 columns, the LogUp lookup AIR of 2^log_n rows, a GKR batch of one
 GrandProduct and one LogUpGeneric instance of 2^log_n random values each,
-or the basic AIR of 2^log_n rows under the Poseidon252 flavour.
+or the basic AIR of 2^log_n rows under the Poseidon252 flavour;
+`--pow-bits` and `--n-queries` set the PcsConfig of every path but GKR
+(default: pow_bits 5, 3 queries, log blowup 1).
 After one warm prove it runs two more: one under synchronised tracing
 spans (host wall time per prover phase, device work included), and one
 under torch.profiler (device time by kernel, and the device's busy share
@@ -35,7 +39,7 @@ COMMIT_RANGE = "MerkleProver.commit"
 CFFT_RANGE = "circle_poly.cfft_caller"
 GLUE_OPS = ("aten::cat", "aten::pad", "aten::contiguous", "aten::clone")
 HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle",
-                    "hades")
+                    "hades", "grind")
 
 
 def ops_inside(events, range_name: str, op_names) -> dict:
@@ -67,6 +71,8 @@ def main(argv=None) -> None:
     parser.add_argument("--log-n", type=int, default=18)
     parser.add_argument("--seq", type=int, default=64)
     parser.add_argument("--top", type=int, default=12)
+    parser.add_argument("--pow-bits", type=int, default=5)
+    parser.add_argument("--n-queries", type=int, default=3)
     args = parser.parse_args(argv)
 
     import torch
@@ -77,6 +83,8 @@ def main(argv=None) -> None:
     from .examples.basic_air import prove_basic_air
     from .examples.logup_lookup import prove_logup_lookup
     from .examples.wide_fibonacci import prove_wide_fibonacci
+    from .fri import FriConfig
+    from .pcs import PcsConfig
     from .lookups.gkr import GRAND_PRODUCT, LOGUP_GENERIC, Layer, prove_batch
     from .lookups.mle import Mle
     from .vcs.poseidon252_merkle import Poseidon252MerkleProver
@@ -85,6 +93,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove needs a CUDA device")
     device = torch.device("cuda", 0)
+    config = PcsConfig(args.pow_bits, FriConfig(0, 1, args.n_queries))
     gen = torch.Generator().manual_seed(0)
 
     def rand_mle(low: int) -> Mle:
@@ -100,11 +109,13 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if args.path == "wide_fibonacci":
-            prove_wide_fibonacci(args.log_n, args.seq, seed=0, device=device)
+            prove_wide_fibonacci(args.log_n, args.seq, config, seed=0,
+                                 device=device)
         elif args.path == "logup":
-            prove_logup_lookup(args.log_n, seed=0, device=device)
+            prove_logup_lookup(args.log_n, config, seed=0, device=device)
         elif args.path == "poseidon":
-            prove_basic_air(args.log_n, device=device, flavor="poseidon252")
+            prove_basic_air(args.log_n, config, device=device,
+                            flavor="poseidon252")
         else:
             prove_batch(Blake2sChannel(), gkr_layers)
         torch.cuda.synchronize()
@@ -186,6 +197,7 @@ def main(argv=None) -> None:
         "path": args.path,
         "shape": (f"2^{args.log_n} x {args.seq}"
                   if args.path == "wide_fibonacci" else f"2^{args.log_n}"),
+        "pow_bits": args.pow_bits, "n_queries": args.n_queries,
         "power_limit": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,13 +1,17 @@
-"""Proof serialization (JSON-compatible dicts).
+"""Proof, channel-state and prover-checkpoint serialization.
 
 The dict layout is the JAX package's (tstwo_tpu/serialize.py), so a proof
 made by either package loads into the other's verifier, and two proofs
-compare as json.dumps(proof_to_dict(p), sort_keys=True).
+compare as json.dumps(proof_to_dict(p), sort_keys=True).  The prover
+checkpoint (.npz) keeps the JAX package's format too, words as uint32, so
+a checkpoint either package wrote resumes in the other.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+from .channel import ChannelTime
+from .channel.blake2s import Blake2sChannel
 from .fields import M31, QM31
 from .fri import FriLayerProof, FriProof
 from .pcs import PcsConfig
@@ -114,3 +118,132 @@ def proof_from_dict(d: Dict[str, Any]) -> StarkProof:
         ),
     )
     return StarkProof(csp)
+
+
+def channel_state_to_dict(ch: Blake2sChannel) -> Dict[str, Any]:
+    """Checkpoint the Fiat-Shamir transcript state between proving phases."""
+    return {
+        "digest": ch.digest.hex(),
+        "n_challenges": ch.channel_time.n_challenges,
+        "n_sent": ch.channel_time.n_sent,
+    }
+
+
+def channel_state_from_dict(d: Dict[str, Any]) -> Blake2sChannel:
+    return Blake2sChannel(
+        digest=bytes.fromhex(d["digest"]),
+        channel_time=ChannelTime(d["n_challenges"], d["n_sent"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Mid-prove phase checkpointing (tstwo_tpu/serialize.py:123-252)
+#
+# A prove has two expensive device phases separated by cheap host-side
+# transcript steps: the commit phase (extension CFFTs + Merkle trees per
+# committed tree) and the opening phase (quotients / FRI / decommitment).
+# `save_prover_checkpoint` snapshots everything the opening phase needs --
+# the Fiat-Shamir transcript state plus every committed tree's polynomials,
+# evaluations and Merkle layers -- into one .npz; `load_prover_checkpoint`
+# restores a CommitmentSchemeProver on a device that continues to a
+# byte-identical proof without re-running any committed work.
+# ---------------------------------------------------------------------------
+
+def prover_checkpoint_arrays(scheme, channel):
+    """(meta dict, {name: numpy uint32 array}) snapshot of a
+    CommitmentSchemeProver with N committed trees + the channel state."""
+    from .utils import to_numpy_u32
+
+    meta: Dict[str, Any] = {
+        "channel": channel_state_to_dict(channel),
+        "config": {
+            "pow_bits": scheme.config.pow_bits,
+            "fri": [scheme.config.fri_config.log_last_layer_degree_bound,
+                    scheme.config.fri_config.log_blowup_factor,
+                    scheme.config.fri_config.n_queries],
+        },
+        # the flavour is recorded so that a load cannot rebuild the wrong
+        # Merkle prover class; the port proves on one device (no mesh)
+        "merkle_flavor": scheme.merkle_ops.name,
+        "mesh": False,
+        "trees": [],
+    }
+    arrays: Dict[str, Any] = {}
+    for ti, tree in enumerate(scheme.trees):
+        tmeta = {"poly_logs": [p.log_size() for p in tree.polynomials],
+                 "eval_logs": [ev.domain.log_size()
+                               for ev in tree.evaluations],
+                 "n_layers": len(tree.commitment.layers)}
+        meta["trees"].append(tmeta)
+        for pi, poly in enumerate(tree.polynomials):
+            arrays[f"t{ti}_p{pi}"] = to_numpy_u32(poly.coeffs)
+        for ei, ev in enumerate(tree.evaluations):
+            arrays[f"t{ti}_e{ei}"] = to_numpy_u32(ev.values)
+        for li, layer in enumerate(tree.commitment.layers):
+            arrays[f"t{ti}_l{li}"] = to_numpy_u32(layer)
+    return meta, arrays
+
+
+def save_prover_checkpoint(path: str, scheme, channel) -> None:
+    import json
+
+    import numpy as np
+
+    meta, arrays = prover_checkpoint_arrays(scheme, channel)
+    np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+
+
+def load_prover_checkpoint(path: str, twiddles, device="cpu"):
+    """Restore (scheme, channel) on `device`; `twiddles` is the same
+    TwiddleTree a fresh prove would precompute (deterministic from the
+    domain sizes).
+
+    The checkpoint records its Merkle flavour, and the matching prover
+    class is rebuilt; an unknown flavour is refused, and so is a checkpoint
+    of a mesh-sharded prove (the JAX package's multi-device path), which
+    this single-device prover cannot continue."""
+    import json
+
+    import numpy as np
+
+    from .circle import CanonicCoset
+    from .pcs.prover import CommitmentSchemeProver, CommitmentTreeProver
+    from .poly.circle_poly import CircleEvaluation, CirclePoly
+    from .utils import to_torch_u32
+    from .vcs.ops import MERKLE_OPS
+    from .vcs.poseidon252_merkle import Poseidon252MerkleProver
+    from .vcs.prover import MerkleProver
+
+    data = np.load(path)
+    meta = json.loads(str(data["__meta__"]))
+    channel = channel_state_from_dict(meta["channel"])
+    cfg = PcsConfig(meta["config"]["pow_bits"],
+                    FriConfig(*meta["config"]["fri"]))
+    flavor = meta.get("merkle_flavor", "blake2s")
+    if flavor not in MERKLE_OPS:
+        raise ValueError(f"checkpoint has unsupported Merkle flavor "
+                         f"{flavor!r}; known: {sorted(MERKLE_OPS)}")
+    if meta.get("mesh", False):
+        raise ValueError(
+            "checkpoint was saved from a mesh-sharded prove; the port "
+            "proves on one device and cannot continue it")
+    prover_cls = {"blake2s": MerkleProver,
+                  "poseidon252": Poseidon252MerkleProver}[flavor]
+    scheme = CommitmentSchemeProver(cfg, twiddles, device=device,
+                                    merkle_ops=MERKLE_OPS[flavor])
+
+    def tensor(name):
+        return to_torch_u32(data[name], scheme.device)
+
+    for ti, tmeta in enumerate(meta["trees"]):
+        tree = CommitmentTreeProver.__new__(CommitmentTreeProver)
+        tree.polynomials = [CirclePoly(tensor(f"t{ti}_p{pi}"))
+                            for pi in range(len(tmeta["poly_logs"]))]
+        tree.evaluations = [
+            CircleEvaluation(CanonicCoset.new(log).circle_domain(),
+                             tensor(f"t{ti}_e{ei}"))
+            for ei, log in enumerate(tmeta["eval_logs"])]
+        tree.commitment = prover_cls(
+            [tensor(f"t{ti}_l{li}") for li in range(tmeta["n_layers"])])
+        scheme.trees.append(tree)
+    return scheme, channel
