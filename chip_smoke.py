@@ -119,19 +119,33 @@ M31_MUL_OPS = 9
 # partial rounds of one, each cube a square and a product (107 of each), and
 # a round's 3 constant adds and 9 adds and subtracts of the MDS.
 # `source_count_ms` is beside the bound in a row: the kernel's own count from
-# its source (every product a full one of 64 multiply-adds with two adds
-# each for the third term and the carry, 96 for its reduction, 64 for the
-# result words, 16 for the conditional subtraction: 368; a modular add 24)
-# over the same rate, which says how far the kernel's body is from what the
-# function needs, and how close the kernel runs to its own body.
+# its source over the same rate, which says how far the kernel's body is
+# from what the function needs, and how close the kernel runs to its own
+# body.  It counts the primitives of csrc/felt252.cuh, one PTX instruction
+# each (tests/test_torch_felt252_source_count.py counts them on the host):
+# a product is 128 for the 16-word product (a mad.wide and an add with
+# carry a term) and 54 for the reduction (m read off the words, m * p as
+# products by 17 and shifts by 27 in two subtractions, and p added back to
+# a negative result): 182; a square is 92 (the 28 cross products, a one-bit
+# shift to double them, the 8 squares) and the same 54: 146.  A modular add
+# or subtract is written in plain C++ and counted as 24 (8 adds with carry
+# and 16 for the conditional subtraction).
 FELT_REDUCE_OPS = 8 * 3
 FELT_MUL_OPS = 64 + FELT_REDUCE_OPS
 FELT_SQR_OPS = 36 + FELT_REDUCE_OPS
 FELT_ADD_OPS = 16
 HADES_OPS = 107 * (FELT_MUL_OPS + FELT_SQR_OPS) + 91 * 12 * FELT_ADD_OPS
-HADES_SOURCE_OPS = 214 * (192 + 96 + 64 + 16) + 91 * 12 * 24
+FELT_MUL_SOURCE_OPS = 128 + 54
+FELT_SQR_SOURCE_OPS = 92 + 54
+FELT_ADD_SOURCE_OPS = 24
+HADES_SOURCE_OPS = (107 * (FELT_MUL_SOURCE_OPS + FELT_SQR_SOURCE_OPS)
+                    + 91 * 12 * FELT_ADD_SOURCE_OPS)
 P252 = (1 << 251) + 17 * (1 << 192) + 1
-FELT_EDGE = [0, 1, 2, P252 - 1, P252 - 2, 1 << 251, (1 << 251) - 1, 17 << 192]
+# felts that stress the carries and the reduction: the ends of the field,
+# the words of p, runs of set words and their neighbours
+FELT_EDGE = [0, 1, 2, P252 - 1, P252 - 2, 1 << 251, (1 << 251) - 1, 17 << 192,
+             (1 << 192) - 1, (1 << 224) - 1, ((1 << 251) - 1) - (17 << 192),
+             (1 << 32) - 1]
 P = (1 << 31) - 1
 M31_EDGE = [0, 1, 2, P - 1, P - 2, 1 << 16, (1 << 16) - 1, (1 << 30) + 12345]
 
@@ -443,6 +457,8 @@ def compare_kernels(device):
             (21, 3, False), (21, 0, True), (22, 4, False), (21, 4, True)]:
         n = 1 << log_n
         prev = rand_felts(2 * n) if with_prev else None
+        if with_prev:  # the edge felts as the children of the first nodes
+            prev[:, :len(FELT_EDGE)] = edge
         cols = [rand((n_cols, n))] if n_cols else []
         n_felts = (2 if with_prev else 0) + -(-n_cols // 8) + 1
         hades_row("poseidon_merkle_layer",

@@ -417,7 +417,8 @@ def test_prove_with_grinding_on_the_card_equals_the_cpu_prove(device):
 
 P252 = (1 << 251) + 17 * (1 << 192) + 1
 FELT_EDGE = [0, 1, 2, P252 - 1, P252 - 2, 1 << 251, (1 << 251) - 1,
-             17 << 192, (1 << 224) - 1, (1 << 32) - 1]
+             17 << 192, (1 << 224) - 1, (1 << 32) - 1, (1 << 192) - 1,
+             ((1 << 251) - 1) - (17 << 192)]
 
 
 def _rand_felts(rng, n, device):
@@ -457,6 +458,22 @@ def test_hades_kernel_matches_plain_and_host(device, n):
     if n > 4:
         for g, w in zip(pos.hades_permutation(stacked[:, :, 1:n - 2]), got):
             _exact(g, w[:, 1:n - 2])
+
+
+def test_hades_kernel_on_every_triple_of_edge_felts(device):
+    """2^12 states: every ordered triple of the edge felts (1728), the rest
+    seeded random felts; kernel == plain over all of them."""
+    rng = np.random.default_rng(12)
+    n = 1 << 12
+    state = [_rand_felts(rng, n, device) for _ in range(3)]
+    edge = pos.ints_to_felts(FELT_EDGE, device)
+    k = len(FELT_EDGE)
+    idx = torch.arange(k ** 3, device=device)
+    for slot, div in enumerate((k * k, k, 1)):
+        state[slot][:, :k ** 3] = edge[:, (idx // div) % k]
+    got = pos.hades_permutation_cuda(state)
+    for g, w in zip(got, pos.hades_permutation_plain(state)):
+        _exact(g, w)
 
 
 @pytest.mark.parametrize("log,n_cols,with_prev,layout", [

@@ -8,9 +8,9 @@
 // Carried over as plain PyTorch a permutation is some 10^4 small launches;
 // here it is a loop in registers.
 //
-// What bounds them on the H100: integer operations.  One permutation is 214
-// field products (8 full rounds of three cubes, 83 partial rounds of one) of
-// 64 multiply-adds and a reduction each, and some 1100 modular additions,
+// What bounds them on the H100: integer operations.  One permutation is 107
+// cubes (8 full rounds of three, 83 partial rounds of one), each a square
+// and a product with their reductions, and some 1100 modular additions,
 // against 32 bytes written and at most a few hundred read per node.  So the
 // design spends nothing on memory: one thread a state (a node), the three
 // felts of the state in registers as 8 words each (felt252.cuh), the round
