@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card at the shapes its path gives it, then
-drives seven paths, each with the launch counts set to 0 just before it and
+drives eight paths, each with the launch counts set to 0 just before it and
 read just after:
 
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
@@ -32,7 +32,16 @@ read just after:
     must launch the Poseidon layer kernel and no Blake2s kernel;
   * the Poseidon sponge (`ops.poseidon252.poseidon_hash_many`) over 2^16
     rows, which runs the Hades permutation kernel, against the host's
-    hash.
+    hash;
+  * the mesh prove (`prove_wide_fibonacci(..., mesh=)`, tstwo_tpu_torch/
+    parallel): ranks started as processes of this script (`--mesh-rank`),
+    each under a timeout, every one on the one card -- one NCCL rank at
+    2^18 x 64, two gloo ranks at 2^16 x 32 and four gloo ranks at
+    2^18 x 64.  Every rank's proof must equal the single-device proof of
+    the same size byte for byte, every rank must launch the CFFT, Merkle
+    layer, Merkle tail and deinterleave kernels, and every rank's Merkle
+    leaves must cover n/D rows of each sharded column.  Its walls are
+    those of ranks sharing one card, not of a multi-GPU run.
 
 Each phase prints one line (name, seconds, result); any failure exits
 non-zero.  The second-to-last line is the kernel table as JSON, the last
@@ -584,6 +593,7 @@ def main() -> None:
     torch.cuda.synchronize()
     phase("warm", time.perf_counter() - t0, "log 16 x 32 warm prove")
     kernels.reset_launches()
+    single_json = {}
     for log_n, seq in [(16, 32), (18, 64)]:
         walls = []
         for _ in range(2):
@@ -602,6 +612,7 @@ def main() -> None:
               f"{time.perf_counter() - t1:.3f} s;"
               f" peak device memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
+        single_json[(log_n, seq)] = proof_json(proof)
     launches = launch_counts("wide_fibonacci", MAIN_PATH_KERNELS,
                              forbidden=("blake2s_grind",))
     counts = {
@@ -631,6 +642,9 @@ def main() -> None:
     counts["poseidon_merkle_layer"] = poseidon_phases(device)[
         "poseidon_merkle_layer"]
     counts["hades_permutation"] = poseidon_sponge(device)["hades_permutation"]
+
+    # 19. the mesh prove: ranks sharing the card
+    mesh_phase(card, single_json)
 
     for row in rows:
         row["launches"] = counts[row["name"]]
@@ -1114,5 +1128,122 @@ def poseidon_sponge(device) -> dict:
     return launches
 
 
+# (backend, ranks, log_n, seq) of each group of the mesh phase; the phase's
+# single-device proofs of phase 6 are the references
+MESH_GROUPS = (("nccl", 1, 18, 64), ("gloo", 2, 16, 32), ("gloo", 4, 18, 64))
+MESH_KERNELS = ("cfft_forward", "cfft_inverse", "merkle_layer", "merkle_tail",
+                "deinterleave")
+MESH_RANK_TIMEOUT_S = 300
+
+
+def mesh_rank(argv) -> None:
+    """One rank of the mesh phase (this script started with --mesh-rank):
+    joins the group, proves twice (the first fills the per-process caches:
+    the kernel library, twiddles, sharded-FFT plans) with the launch counts,
+    leaf rows and collective traffic reset just before the second, writes
+    that proof's JSON and prints its report as one JSON line."""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    for name in ("--mesh-rank", "--size", "--log-n", "--seq"):
+        ap.add_argument(name, type=int, required=True)
+    for name in ("--backend", "--store", "--out"):
+        ap.add_argument(name, required=True)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
+    from tstwo_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed(a.backend, "file://" + a.store, a.mesh_rank, a.size)
+    mesh = make_mesh()
+    walls = []
+    for _ in range(2):
+        kernels.reset_launches()
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof, _, _ = prove_wide_fibonacci(a.log_n, a.seq, seed=0, mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    Path(a.out).write_text(proof_json(proof))
+    print(json.dumps({"rank": mesh.rank, "device": str(mesh.device),
+                      "walls": walls, "launches": dict(kernels.LAUNCHES),
+                      "leaf_rows": mesh.leaf_rows,
+                      "traffic": mesh.traffic}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(card: str, single_json: dict) -> None:
+    """Phase 19: each group of MESH_GROUPS as processes of this script on
+    the one card (the kernels are built: the ranks load the library),
+    against the single-device proofs of phase 6."""
+    import tempfile
+
+    for backend, size, log_n, seq in MESH_GROUPS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--mesh-rank", str(r), "--size", str(size),
+                 "--log-n", str(log_n), "--seq", str(seq),
+                 "--backend", backend, "--store", f"{tmp}/store",
+                 "--out", f"{tmp}/proof{r}.json"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(size)]
+            outs = []
+            try:
+                for proc in procs:
+                    outs.append(proc.communicate(timeout=MESH_RANK_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                fail(f"mesh {backend} x{size}: a rank passed "
+                     f"{MESH_RANK_TIMEOUT_S} s")
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            for r, (proc, (out, err)) in enumerate(zip(procs, outs)):
+                if proc.returncode != 0:
+                    print(err[-3000:], flush=True)
+                    fail(f"mesh {backend} x{size}: rank {r} exited "
+                         f"{proc.returncode}")
+            reports = [json.loads(out.strip().splitlines()[-1])
+                       for out, _ in outs]
+            proofs = [Path(f"{tmp}/proof{r}.json").read_text()
+                      for r in range(size)]
+        name = f"mesh {backend} x{size} {log_n}x{seq}"
+        if any(p != single_json[(log_n, seq)] for p in proofs):
+            fail(f"{name}: a rank's proof differs from the single-device "
+                 "proof")
+        for rep in reports:
+            for kernel in MESH_KERNELS:
+                if rep["launches"][kernel] <= 0:
+                    fail(f"{name}: rank {rep['rank']} did not launch "
+                         f"{kernel}")
+            if not rep["leaf_rows"] or any(
+                    local != (1 << log) // size
+                    for log, _, local in rep["leaf_rows"]):
+                fail(f"{name}: rank {rep['rank']} leaf rows "
+                     f"{rep['leaf_rows']} are not n/{size} of each column")
+            print(f"  {name} rank {rep['rank']} on {rep['device']}: walls "
+                  f"{', '.join(f'{w:.3f}' for w in rep['walls'])} s; "
+                  f"launches {json.dumps(rep['launches'], sort_keys=True)};"
+                  f" traffic {json.dumps(rep['traffic'], sort_keys=True)}",
+                  flush=True)
+        warm = max(rep["walls"][1] for rep in reports)
+        phase(name, time.perf_counter() - t0,
+              f"{size} rank(s) sharing one card ({card}), not scale-out: "
+              f"every rank's proof == the single-device proof; warm wall "
+              f"{warm:.3f} s (slowest rank); kernels "
+              f"{', '.join(MESH_KERNELS)} launched on every rank; leaf rows "
+              f"n/{size} of every sharded column")
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        mesh_rank(sys.argv[1:])
+    else:
+        main()

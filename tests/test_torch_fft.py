@@ -164,9 +164,15 @@ def test_evaluate_zero_extends_by_a_blowup(log_m, blowup):
 
 
 def test_evaluate_refuses_a_length_that_is_no_power_of_two():
+    """A length that is no power of two is no longer refused: it pads to
+    the next power of two as the JAX package's evaluate_values does (and
+    equals it); more coefficients than points are still refused."""
     domain = CanonicCoset.new(4).circle_domain()
-    with pytest.raises(ValueError, match="power of two"):
-        circle_poly.evaluate_values(to_torch_u32(_values(1, (2, 6))), domain)
+    coeffs = _values(1, (2, 6))
+    got = circle_poly.evaluate_values(to_torch_u32(coeffs), domain)
+    want = jax_circle_poly.evaluate_values(
+        jnp.asarray(coeffs), JaxCanonicCoset.new(4).circle_domain())
+    np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(want))
     with pytest.raises(ValueError, match="too small"):
         circle_poly.evaluate_values(to_torch_u32(_values(1, (2, 32))), domain)
 

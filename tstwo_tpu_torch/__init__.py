@@ -1,7 +1,8 @@
 """tstwo_tpu_torch: the Circle-STARK prover of tstwo_tpu on PyTorch and CUDA.
 
 The Blake2s prove -> verify path of the JAX package, on torch tensors:
-columns are int32 tensors of canonical M31 values on one device.  On a
+columns are int32 tensors of canonical M31 values on one device, or
+point-sharded over the ranks of torch.distributed (parallel/, `mesh=`).  On a
 CUDA device the circle FFT, the batched Blake2s (Merkle layers and the
 proof-of-work grind) and the even/odd deinterleave run as hand-written
 CUDA kernels (csrc/, built with nvcc at first use); on the CPU they run as
@@ -16,6 +17,7 @@ Layers:
   fri / pcs                low-degree test + polynomial commitment scheme
   air / constraint_framework  AIR components and constraint evaluation
   prover                   prove() / verify() orchestration
+  parallel                 mesh, sharded CFFT, sharded ops and Merkle trees
 """
 
 from .fields import M31, CM31, QM31, P, SECURE_EXTENSION_DEGREE  # noqa: F401

@@ -20,7 +20,7 @@ from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
 from ..poly.twiddles import precompute_twiddles
 from ..prover import StarkProof, prove, verify
-from ..utils import entry_device, to_torch_u32
+from ..utils import entry_device, mesh_device, to_torch_u32
 
 CONSTRAINT_EVAL_BLOWUP_FACTOR = 1
 
@@ -62,18 +62,21 @@ def generate_trace(log_num_rows: int, col1_vals=(1, 7), col2_vals=(5, 11),
 
 
 def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
-                    device=None, flavor: str = "blake2s",
+                    device=None, flavor: str = "blake2s", mesh=None,
                     ) -> Tuple[StarkProof, FrameworkComponent, PcsConfig]:
     """Full prove flow of rust-examples/05_proving_an_air.rs:52-121, on
     `device`: CUDA device 0 unless given (it raises where there is none);
     `device="cpu"` runs the plain PyTorch versions on the CPU.  `flavor`
     selects the MerkleChannel: "blake2s" or "poseidon252" (Hades Merkle
-    trees, felt252 roots, the Poseidon252 channel)."""
+    trees, felt252 roots, the Poseidon252 channel).  With `mesh`
+    (parallel/, Blake2s only), the prove runs point-sharded over its ranks
+    on the mesh's device, and every rank returns the same proof,
+    byte-identical to the single-device one."""
     from ..tracing import span
     from ..vcs.ops import MERKLE_OPS
 
     merkle_ops = MERKLE_OPS[flavor]
-    device = entry_device(device)
+    device = mesh_device(mesh, device)
     config = config or PcsConfig()
     with span("trace_gen"):
         columns = generate_trace(log_num_rows, device=device)
@@ -89,7 +92,7 @@ def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
 
     channel = merkle_ops.default_channel()
     commitment_scheme = CommitmentSchemeProver(
-        config, twiddles, device, merkle_ops=merkle_ops)
+        config, twiddles, device, merkle_ops=merkle_ops, mesh=mesh)
 
     # preprocessed trace (empty)
     tree_builder = commitment_scheme.tree_builder()

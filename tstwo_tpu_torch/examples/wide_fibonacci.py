@@ -23,7 +23,7 @@ from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
 from ..poly.twiddles import precompute_twiddles
 from ..prover import StarkProof, prove, verify
-from ..utils import entry_device, to_torch_u32
+from ..utils import entry_device, mesh_device, to_torch_u32
 
 FIB_SEQUENCE_LENGTH = 100
 P = (1 << 31) - 1
@@ -74,14 +74,17 @@ def generate_trace(log_n_rows: int, sequence_length: int = FIB_SEQUENCE_LENGTH,
 def prove_wide_fibonacci(log_n_rows: int = 6,
                          sequence_length: int = FIB_SEQUENCE_LENGTH,
                          config: PcsConfig = None, seed: int = 0,
-                         device=None,
+                         device=None, mesh=None,
                          ) -> Tuple[StarkProof, FrameworkComponent, PcsConfig]:
     """Prove 2^log_n_rows rows of `sequence_length` columns on `device`:
     CUDA device 0 unless given (it raises where there is none);
-    `device="cpu"` runs the plain PyTorch versions on the CPU."""
+    `device="cpu"` runs the plain PyTorch versions on the CPU.  With
+    `mesh` (parallel/), the prove runs point-sharded over its ranks on the
+    mesh's device, and every rank returns the same proof, byte-identical
+    to the single-device one."""
     from ..tracing import span
 
-    device = entry_device(device)
+    device = mesh_device(mesh, device)
     config = config or PcsConfig()
     with span("trace_gen"):
         columns = generate_trace(log_n_rows, sequence_length, seed=seed,
@@ -94,7 +97,7 @@ def prove_wide_fibonacci(log_n_rows: int = 6,
                 log_n_rows + 1 + config.fri_config.log_blowup_factor)
             .circle_domain().half_coset)
     channel = Blake2sChannel()
-    scheme = CommitmentSchemeProver(config, twiddles, device)
+    scheme = CommitmentSchemeProver(config, twiddles, device, mesh=mesh)
     tb = scheme.tree_builder()
     tb.extend_evals([])
     tb.commit(channel)

@@ -7,6 +7,11 @@ decommitment logic are host side.  Structure follows Rust stwo fri.rs (the refer
 stubs the commitment side with mocks and alpha=1 placeholders -- those are
 deliberately NOT reproduced; channel-drawn alphas and real Merkle roots are
 used throughout).
+
+With a mesh (parallel/), a layer whose log size `Mesh.shards` splits is
+folded and committed on each rank's slice (parallel/ops.py,
+parallel/merkle.py); the first layer under the threshold is gathered and
+the rest, down to the replicated last-layer polynomial, runs replicated.
 """
 from __future__ import annotations
 
@@ -162,11 +167,13 @@ class InsufficientWitnessError(Exception):
 
 
 def compute_decommitment_positions_and_witness_evals(
-    values: torch.Tensor, query_positions: Sequence[int], fold_step: int
+    values: torch.Tensor, query_positions: Sequence[int], fold_step: int,
+    mesh=None,
 ) -> Tuple[List[int], List[QM31]]:
-    """reference fri.ts:346-384.  values: int32 [4, n] on any device; only
-    the query-adjacent witness positions are gathered and copied to the
-    host, never the whole column."""
+    """reference fri.ts:346-384.  values: int32 [4, n] on any device, or
+    with `mesh` this rank's [4, n / D] slice; only the query-adjacent
+    witness positions are gathered (from the ranks that hold them) and
+    copied to the host, never the whole column."""
     decommitment_positions: List[int] = []
     witness_positions: List[int] = []
     i = 0
@@ -188,9 +195,16 @@ def compute_decommitment_positions_and_witness_evals(
             witness_positions.append(pos)
     if not witness_positions:
         return decommitment_positions, []
-    idx = torch.tensor(witness_positions, dtype=torch.int64,
-                       device=values.device)
-    vals = to_numpy_u32(values.index_select(-1, idx))
+    if mesh is not None:
+        from .parallel.ops import gather_at
+
+        log = (int(values.shape[-1]) * mesh.size).bit_length() - 1
+        vals = to_numpy_u32(gather_at(
+            mesh, [([values], witness_positions, log, True)])[0])
+    else:
+        idx = torch.tensor(witness_positions, dtype=torch.int64,
+                           device=values.device)
+        vals = to_numpy_u32(values.index_select(-1, idx))
     return decommitment_positions, [QM31.from_ints(vals[:, k].tolist())
                                     for k in range(vals.shape[1])]
 
@@ -236,17 +250,28 @@ def compute_decommitment_positions_and_rebuild_evals(
 # Prover
 # ---------------------------------------------------------------------------
 
+def _commit_layer(values: Sequence[torch.Tensor], logs: Sequence[int],
+                  merkle_ops, mesh):
+    """One FRI layer's tree: each [4, n] coordinate stack is one 2-D
+    entry; with a mesh, the sharded tree of parallel/merkle.py."""
+    if mesh is not None:
+        from .parallel.merkle import ShardedMerkleProver
+
+        return ShardedMerkleProver.commit(mesh, list(values), list(logs))
+    return merkle_ops.commit(list(values))
+
+
 class FriFirstLayerProver:
     """Commits the raw quotient columns (all coordinate columns in one tree)."""
 
     def __init__(self, columns: List[SecureEvaluation],
                  merkle_tree: Optional[MerkleProver] = None,
-                 merkle_ops=Blake2sMerkleOps):
+                 merkle_ops=Blake2sMerkleOps, mesh=None):
         self.columns = columns
         if merkle_tree is None:
-            # each [4, n] coordinate stack is one 2-D entry
-            merkle_tree = merkle_ops.commit(
-                [se.values for se in columns])
+            merkle_tree = _commit_layer(
+                [se.values for se in columns], self.column_log_sizes(),
+                merkle_ops, mesh)
         self.merkle_tree = merkle_tree
 
     def column_log_sizes(self) -> List[int]:
@@ -262,11 +287,13 @@ class FriFirstLayerProver:
             log = se.domain.log_size()
             column_queries = queries.fold(queries.log_domain_size - log)
             positions, witness = compute_decommitment_positions_and_witness_evals(
-                se.values, column_queries.positions, CIRCLE_TO_LINE_FOLD_STEP)
+                se.values, column_queries.positions, CIRCLE_TO_LINE_FOLD_STEP,
+                se.mesh)
             positions_by_log[log] = positions
             fri_witness.extend(witness)
         _, decommitment = self.merkle_tree.decommit(
-            positions_by_log, [se.values for se in self.columns])
+            positions_by_log, [se.values for se in self.columns],
+            self.column_log_sizes())
         return FriLayerProof(fri_witness, decommitment,
                              self.merkle_tree.root())
 
@@ -276,21 +303,71 @@ class FriInnerLayerProver:
 
     def __init__(self, evaluation: LineEvaluation,
                  merkle_tree: Optional[MerkleProver] = None,
-                 merkle_ops=Blake2sMerkleOps):
+                 merkle_ops=Blake2sMerkleOps, mesh=None):
         self.evaluation = evaluation
         if merkle_tree is None:
-            merkle_tree = merkle_ops.commit(
-                [evaluation.values])
+            merkle_tree = _commit_layer(
+                [evaluation.values], [evaluation.domain.log_size()],
+                merkle_ops, mesh)
         self.merkle_tree = merkle_tree
 
     def decommit(self, queries: Queries) -> FriLayerProof:
         positions, fri_witness = compute_decommitment_positions_and_witness_evals(
-            self.evaluation.values, list(queries.positions), FOLD_STEP)
+            self.evaluation.values, list(queries.positions), FOLD_STEP,
+            self.evaluation.mesh)
         log = self.evaluation.domain.log_size()
         _, decommitment = self.merkle_tree.decommit(
-            {log: positions}, [self.evaluation.values])
+            {log: positions}, [self.evaluation.values], [log])
         return FriLayerProof(fri_witness, decommitment,
                              self.merkle_tree.root())
+
+
+def _zero_layer(domain: LineDomain, device, mesh) -> LineEvaluation:
+    """The zero evaluation the first circle column folds into: this rank's
+    slice where the mesh shards the layer."""
+    if mesh is not None and mesh.shards(domain.log_size()):
+        return LineEvaluation(
+            domain, torch.zeros((4, domain.size() // mesh.size),
+                                dtype=torch.int32, device=device), mesh)
+    return LineEvaluation.new_zero(domain, device)
+
+
+def _fold_circle_into(layer: LineEvaluation, column: SecureEvaluation,
+                      alpha: torch.Tensor, mesh) -> LineEvaluation:
+    """layer * alpha^2 + the circle-to-line fold of `column`.  A sharded
+    layer folds the slice of a column sharded with it; a replicated layer
+    gathers a sharded column first (the layer at the threshold)."""
+    itw = fri_ops.domain_y_itwiddles(column.domain, layer.values.device)
+    if layer.mesh is not None:
+        from .parallel.ops import sharded_fold_circle_into_line
+
+        return LineEvaluation(layer.domain, sharded_fold_circle_into_line(
+            mesh, layer.values, column.values, itw, alpha), mesh)
+    src = column.values
+    if column.mesh is not None:
+        from .parallel.ops import gather_points
+
+        src = gather_points(mesh, src)
+    return LineEvaluation(layer.domain, fri_ops.fold_circle_into_line(
+        layer.values, src, itw, alpha))
+
+
+def _fold_line(layer: LineEvaluation, twiddles: TwiddleTree,
+               alpha: torch.Tensor, mesh) -> LineEvaluation:
+    """The next FRI layer: a sharded layer folds its slice, and the fold
+    is gathered once it falls under the mesh's sharding threshold."""
+    domain = layer.domain.double()
+    itw = twiddles.layer_of_size(len(layer) // 2, inverse=True,
+                                 device=layer.values.device)
+    if layer.mesh is None:
+        return LineEvaluation(domain,
+                              fri_ops.fold_line(layer.values, itw, alpha))
+    from .parallel.ops import gather_points, sharded_fold_line
+
+    folded = sharded_fold_line(mesh, layer.values, itw, alpha)
+    if mesh.shards(domain.log_size()):
+        return LineEvaluation(domain, folded, mesh)
+    return LineEvaluation(domain, gather_points(mesh, folded))
 
 
 class FriProver:
@@ -314,56 +391,49 @@ class FriProver:
     def commit_host(channel, config: FriConfig,
                     columns: List[SecureEvaluation],
                     twiddles: TwiddleTree,
-                    merkle_ops=Blake2sMerkleOps) -> "FriProver":
+                    merkle_ops=Blake2sMerkleOps, mesh=None) -> "FriProver":
         """FRI commitment with the transcript on the host: each layer's
         root is fetched and mixed before the next alpha is drawn (the JAX
-        package's fused device-transcript commit is bit-equal to this)."""
+        package's fused device-transcript commit is bit-equal to this).
+        With `mesh`, the columns whose `mesh` is set are this rank's
+        slices, and the layers they fold into stay sharded while
+        `mesh.shards` splits them."""
         FriProver._validate_columns(columns)
-        first_layer = FriFirstLayerProver(columns, merkle_ops=merkle_ops)
+        first_layer = FriFirstLayerProver(columns, merkle_ops=merkle_ops,
+                                          mesh=mesh)
         channel.mix_root(first_layer.merkle_tree.root())
         inner_layers, last_eval = FriProver._commit_inner_layers(
-            channel, config, columns, twiddles, merkle_ops)
+            channel, config, columns, twiddles, merkle_ops, mesh)
         last_layer_poly = FriProver._commit_last_layer(channel, config, last_eval)
         return FriProver(config, first_layer, inner_layers, last_layer_poly)
 
     @staticmethod
     def _commit_inner_layers(channel, config, columns, twiddles,
-                             merkle_ops=Blake2sMerkleOps):
+                             merkle_ops=Blake2sMerkleOps, mesh=None):
         def folded_size(se):
             return se.domain.size() >> CIRCLE_TO_LINE_FOLD_STEP
 
         device = columns[0].values.device
         first_log = folded_size(columns[0]).bit_length() - 1
         domain = LineDomain.new(Coset.half_odds(first_log))
-        layer_eval = LineEvaluation.new_zero(domain, device)
+        layer_eval = _zero_layer(domain, device, mesh)
         col_iter = iter(columns)
         layers: List[FriInnerLayerProver] = []
         folding_alpha = channel.draw_felt()
-        first = next(col_iter)
-        layer_eval = LineEvaluation(
-            domain,
-            fri_ops.fold_circle_into_line(
-                layer_eval.values, first.values,
-                fri_ops.domain_y_itwiddles(first.domain, device),
-                qm31_ops.scalar(folding_alpha, device=device)))
+        layer_eval = _fold_circle_into(
+            layer_eval, next(col_iter),
+            qm31_ops.scalar(folding_alpha, device=device), mesh)
         pending = next(col_iter, None)
         while len(layer_eval) > config.last_layer_domain_size():
-            layer = FriInnerLayerProver(layer_eval, merkle_ops=merkle_ops)
+            layer = FriInnerLayerProver(layer_eval, merkle_ops=merkle_ops,
+                                        mesh=layer_eval.mesh)
             channel.mix_root(layer.merkle_tree.root())
             folding_alpha = channel.draw_felt()
             alpha_dev = qm31_ops.scalar(folding_alpha, device=device)
-            itw = twiddles.layer_of_size(len(layer_eval) // 2, inverse=True,
-                                         device=device)
-            layer_eval = LineEvaluation(
-                layer_eval.domain.double(),
-                fri_ops.fold_line(layer.evaluation.values, itw, alpha_dev))
+            layer_eval = _fold_line(layer_eval, twiddles, alpha_dev, mesh)
             if pending is not None and folded_size(pending) == len(layer_eval):
-                layer_eval = LineEvaluation(
-                    layer_eval.domain,
-                    fri_ops.fold_circle_into_line(
-                        layer_eval.values, pending.values,
-                        fri_ops.domain_y_itwiddles(pending.domain, device),
-                        alpha_dev))
+                layer_eval = _fold_circle_into(layer_eval, pending, alpha_dev,
+                                               mesh)
                 pending = next(col_iter, None)
             layers.append(layer)
         return layers, layer_eval

@@ -42,8 +42,16 @@ def sub(x, y):
     return qm31_ops.sub(x, y)
 
 
+def neg(x):
+    return m31_ops.neg(x)
+
+
 def mul(x, y):
     return qm31_ops.mul(x, y)
+
+
+def mul_scalar(x, v: QM31):
+    return qm31_ops.mul(x, scalar(v, 1, x.device))
 
 
 def double(x):

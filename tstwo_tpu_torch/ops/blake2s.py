@@ -105,6 +105,26 @@ def hash_words_major_plain(words: torch.Tensor, byte_len: int) -> torch.Tensor:
     return as_int32_bits(torch.stack(h))
 
 
+def compress(h: torch.Tensor, m: torch.Tensor, t: int,
+             is_final: bool) -> torch.Tensor:
+    """One Blake2s block compress, batched over leading axes, in plain
+    PyTorch: h int32 [..., 8] chaining words, m int32 [..., 16] message
+    words (bit-views of u32), t the byte counter.  Returns int32 [..., 8]."""
+    hw = h.to(torch.int64) & _MASK
+    mw = m.to(torch.int64) & _MASK
+    out = _compress_rows([hw[..., i] for i in range(8)],
+                         [mw[..., i] for i in range(16)], t, is_final)
+    return as_int32_bits(torch.stack(out, dim=-1))
+
+
+def hash_u32_batch(words: torch.Tensor, byte_len: int) -> torch.Tensor:
+    """blake2s-256 of N messages of one length, given message-major as
+    int32 [N, n_words] LE words (n_words * 4 >= byte_len; the words past
+    byte_len are zero).  Returns int32 [N, 8] digest words.  The batch is
+    `hash_words_major` of the transpose: the hand kernel on a CUDA tensor."""
+    return hash_words_major(words.t().contiguous(), byte_len).t().contiguous()
+
+
 def _n_blocks(byte_len: int) -> int:
     return max(1, -(-byte_len // 64))
 

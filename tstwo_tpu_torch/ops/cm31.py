@@ -12,6 +12,18 @@ from . import m31
 from .m31 import add_w, narrow, neg_w, sub_w, wide
 
 
+def real(x):
+    return x[0]
+
+
+def imag(x):
+    return x[1]
+
+
+def from_m31(a):
+    return torch.stack([a, torch.zeros_like(a)])
+
+
 def add(x, y):
     return m31.add(x, y)
 
@@ -37,6 +49,10 @@ def mul_w(x, y):
 
 def mul(x, y):
     return narrow(mul_w(wide(x), wide(y)))
+
+
+def mul_m31(x, s):
+    return torch.stack([m31.mul(x[0], s), m31.mul(x[1], s)])
 
 
 def square(x):

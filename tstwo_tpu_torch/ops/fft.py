@@ -218,3 +218,16 @@ def ifft_bitrev_to_natural(values: torch.Tensor,
     kernel on a CUDA device, after the last layer on the CPU."""
     return _transform(values, line_itwiddles, circle_itwiddles, buffer, True,
                       scale)
+
+
+def fold(values: torch.Tensor, factors, mul_fn, add_fn) -> torch.Tensor:
+    """Horner-like hierarchical fold (reference poly/utils.ts:36-59): the
+    last axis has length 2^len(factors), and the factors apply from the
+    innermost (adjacent pairs) to the outermost.  Each step splits the
+    pairs with `fri_ops._deinterleave`, the hand kernel on a CUDA tensor."""
+    from .fri_ops import _deinterleave
+
+    for f in factors:
+        v0, v1 = _deinterleave(values)
+        values = add_fn(v0, mul_fn(v1, f))
+    return values[..., 0]

@@ -86,6 +86,11 @@ def pow_w(v, e: int):
     return r
 
 
+def pow_const(v, e: int):
+    """v**e for a static exponent (int32 in and out)."""
+    return narrow(pow_w(wide(v), e))
+
+
 def inv_w(v):
     """v^(P-2); inv(0) = 0 by convention."""
     return pow_w(v, P - 2)

@@ -13,6 +13,18 @@ from . import cm31, m31
 from .m31 import add_w, narrow, sub_w, wide
 
 
+def c0(x):
+    return x[:2]
+
+
+def c1(x):
+    return x[2:]
+
+
+def join(lo, hi):
+    return torch.cat([lo, hi], dim=0)
+
+
 def add(x, y):
     return m31.add(x, y)
 
@@ -47,6 +59,11 @@ def mul_w(x, y):
 
 def mul(x, y):
     return narrow(mul_w(wide(x), wide(y)))
+
+
+def mul_m31(x, s):
+    """Each coordinate times the M31 values `s` (broadcast to x's shape)."""
+    return m31.mul(x, s)
 
 
 def mul_cm31(x, s2):

@@ -4,6 +4,12 @@ sampled points via DEEP quotients + FRI + PoW + Merkle decommitments
 
 Columns stay on their device; the transcript is the host channel, which
 absorbs each tree's root as soon as the tree is committed.
+
+With a `mesh` (parallel/) the prove is SPMD over its ranks: polynomials
+stay replicated, evaluations are point-sharded where `Mesh.shards` splits
+them -- the extension and interpolation CFFTs run sharded, each rank
+commits its Merkle subtrees, accumulates its quotients and folds its FRI
+slices, and every rank ends with the same proof.
 """
 from __future__ import annotations
 
@@ -14,6 +20,10 @@ import torch
 
 from ..circle import CanonicCoset
 from ..fri import FriProof, FriProver
+from ..parallel.fft import (evaluate_values_sharded,
+                            interpolate_values_sharded)
+from ..parallel.merkle import ShardedMerkleProver
+from ..parallel.ops import gather_points
 from ..poly.circle_poly import (CircleEvaluation, CirclePoly,
                                 eval_columns_at_point, evaluate_values,
                                 interpolate_values)
@@ -55,14 +65,20 @@ class CommitmentSchemeProof:
 
 
 class CommitmentTreeProver:
-    """One committed set of polynomials (reference pcs/prover.ts:209-252)."""
+    """One committed set of polynomials (reference pcs/prover.ts:209-252).
+
+    With `mesh`, the extension CFFT runs sharded (parallel/fft.py): an
+    evaluation that `mesh.shards` splits holds this rank's slice, and the
+    tree is this rank's subtrees plus the replicated top
+    (parallel/merkle.py)."""
 
     def __init__(self, polynomials: List[CirclePoly], log_blowup_factor: int,
                  channel, twiddles: TwiddleTree, device,
-                 merkle_ops=Blake2sMerkleOps):
+                 merkle_ops=Blake2sMerkleOps, mesh=None):
         self.polynomials = polynomials
         self.evaluations: List[CircleEvaluation] = [None] * len(polynomials)
         stacks: List[torch.Tensor] = []
+        logs: List[int] = []
         with span("extension"):
             # all same-size polynomials extend in one batched CFFT
             groups: Dict[int, List[int]] = {}
@@ -72,19 +88,31 @@ class CommitmentTreeProver:
                 domain = CanonicCoset.new(
                     log_size + log_blowup_factor).circle_domain()
                 stacked = torch.stack([polynomials[i].coeffs for i in idxs])
-                ext = evaluate_values(stacked, domain, twiddles)
+                sharded = mesh is not None and mesh.shards(domain.log_size())
+                if mesh is not None:
+                    ext = evaluate_values_sharded(stacked, domain, twiddles,
+                                                  mesh)
+                else:
+                    ext = evaluate_values(stacked, domain, twiddles)
                 stacks.append(ext)
+                logs.append(domain.log_size())
                 for k, i in enumerate(idxs):
-                    self.evaluations[i] = CircleEvaluation(domain, ext[k])
+                    self.evaluations[i] = CircleEvaluation(
+                        domain, ext[k], mesh if sharded else None)
         with span("merkle"):
             # one [C, n] entry per size: the tree hashes same-size columns
             # in index order, which is the order of each stack's rows
-            self.commitment = merkle_ops.commit(stacks, device)
+            if mesh is not None:
+                self.commitment = ShardedMerkleProver.commit(mesh, stacks,
+                                                             logs)
+            else:
+                self.commitment = merkle_ops.commit(stacks, device)
         channel.mix_root(self.commitment.root())
 
     def decommit(self, queries: Dict[int, List[int]]):
         return self.commitment.decommit(
-            queries, [ev.values for ev in self.evaluations])
+            queries, [ev.values for ev in self.evaluations],
+            [ev.domain.log_size() for ev in self.evaluations])
 
 
 class TreeBuilder:
@@ -105,11 +133,20 @@ class TreeBuilder:
             groups: Dict[int, List[int]] = {}
             for i, col in enumerate(columns):
                 groups.setdefault(col.domain.log_size(), []).append(i)
+            mesh = self._scheme.mesh
             for log_size, idxs in groups.items():
                 domain = columns[idxs[0]].domain
                 stacked = torch.stack([columns[i].values for i in idxs])
-                coeffs = interpolate_values(stacked, domain,
-                                            self._scheme.twiddles)
+                if mesh is not None:
+                    # the sharded inverse, then every rank gathers the
+                    # coefficients: polynomials stay replicated
+                    coeffs = interpolate_values_sharded(
+                        stacked, domain, self._scheme.twiddles, mesh)
+                    if mesh.shards(log_size):
+                        coeffs = gather_points(mesh, coeffs)
+                else:
+                    coeffs = interpolate_values(stacked, domain,
+                                                self._scheme.twiddles)
                 for k, i in enumerate(idxs):
                     polys[i] = CirclePoly(coeffs[k])
         return self.extend_polys(polys)
@@ -119,22 +156,31 @@ class TreeBuilder:
 
 
 class CommitmentSchemeProver:
-    """Commits trees and opens them (single device: `device` holds every
-    column the scheme commits).  `merkle_ops` is the Merkle flavour
-    (vcs/ops.py)."""
+    """Commits trees and opens them.  On one device, `device` holds every
+    column the scheme commits; with `mesh` (parallel/) the mesh decides
+    the device, and the whole prove runs point-sharded over its ranks with
+    the same proof bytes (Blake2s flavour only).  `merkle_ops` is the
+    Merkle flavour (vcs/ops.py)."""
 
     def __init__(self, config: PcsConfig, twiddles: TwiddleTree,
-                 device="cpu", merkle_ops=Blake2sMerkleOps):
+                 device="cpu", merkle_ops=Blake2sMerkleOps, mesh=None):
+        if mesh is not None:
+            if merkle_ops is not Blake2sMerkleOps:
+                raise NotImplementedError(
+                    f"a mesh prove shards Blake2s trees only, not "
+                    f"{merkle_ops.name}")
+            device = mesh.device
         self.config = config
         self.twiddles = twiddles
         self.device = torch.device(device)
         self.merkle_ops = merkle_ops
+        self.mesh = mesh
         self.trees: TreeVec = TreeVec()
 
     def _commit(self, polynomials: List[CirclePoly], channel) -> None:
         self.trees.append(CommitmentTreeProver(
             polynomials, self.config.fri_config.log_blowup_factor, channel,
-            self.twiddles, self.device, self.merkle_ops))
+            self.twiddles, self.device, self.merkle_ops, self.mesh))
 
     def tree_builder(self) -> TreeBuilder:
         return TreeBuilder(self, len(self.trees))
@@ -193,7 +239,7 @@ class CommitmentSchemeProver:
         with span("fri_commit"):
             fri_prover = FriProver.commit_host(
                 channel, self.config.fri_config, quotients, self.twiddles,
-                merkle_ops=self.merkle_ops)
+                merkle_ops=self.merkle_ops, mesh=self.mesh)
 
         # 4. Proof of work.
         with span("grind"):

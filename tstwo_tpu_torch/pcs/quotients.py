@@ -205,7 +205,11 @@ def compute_fri_quotients(columns: Sequence[CircleEvaluation],
                           random_coeff: QM31,
                           log_blowup_factor: int) -> List[SecureEvaluation]:
     """Group columns by log size (descending) and accumulate
-    (embedded Rust pcs/quotients.rs compute_fri_quotients)."""
+    (embedded Rust pcs/quotients.rs compute_fri_quotients).  The columns
+    of one size are all point-sharded (their `mesh` set) or all whole; a
+    sharded group accumulates on each rank's slice of the domain."""
+    from ..parallel.ops import sharded_accumulate_quotients
+
     by_log: Dict[int, List[int]] = {}
     for i, col in enumerate(columns):
         by_log.setdefault(col.domain.log_size(), []).append(i)
@@ -215,9 +219,16 @@ def compute_fri_quotients(columns: Sequence[CircleEvaluation],
         domain = CanonicCoset.new(log_size).circle_domain()
         sub_samples = [samples[i] for i in idxs]
         sample_batches = ColumnSampleBatch.new_vec(sub_samples)
-        out.append(accumulate_quotients(
-            domain, [columns[i].values for i in idxs], random_coeff,
-            sample_batches, log_blowup_factor))
+        values = [columns[i].values for i in idxs]
+        mesh = columns[idxs[0]].mesh
+        if mesh is not None:
+            out.append(sharded_accumulate_quotients(
+                mesh, domain, values, random_coeff, sample_batches,
+                log_blowup_factor))
+        else:
+            out.append(accumulate_quotients(
+                domain, values, random_coeff, sample_batches,
+                log_blowup_factor))
     return out
 
 

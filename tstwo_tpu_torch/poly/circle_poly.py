@@ -8,7 +8,7 @@ int32 tensors on any device (reference poly/circle/*.ts).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -45,16 +45,18 @@ def _mappings_for_point(point: CirclePoint, log_size: int,
 def evaluate_values(coeffs: torch.Tensor, domain: CircleDomain,
                     tree: Optional[TwiddleTree] = None) -> torch.Tensor:
     """CFFT-evaluate coefficient tensor(s) [..., m] on `domain` (bit-reversed
-    output); m <= domain.size(), a power of two, zero-extended: inside the
-    kernel on a CUDA device, by a pad on the CPU
-    (reference backend/cpu/circle.ts:71-82)."""
+    output); m <= domain.size(), zero-extended (reference
+    backend/cpu/circle.ts:71-82): a length that is not a power of two is
+    padded to the next one, and from there the kernel zero-extends on a
+    CUDA device, a pad on the CPU."""
     n = domain.size()
     log = domain.log_size()
     if coeffs.shape[-1] > n:
         raise ValueError("domain too small for polynomial")
     m = coeffs.shape[-1]
     if m & (m - 1):
-        raise ValueError("coefficient length must be a power of two")
+        m = 1 << m.bit_length()
+        coeffs = F.pad(coeffs, (0, m - coeffs.shape[-1]))
     if log <= 2 and m < n:
         coeffs = F.pad(coeffs, (0, n - m))
     if log == 1:
@@ -130,17 +132,26 @@ class CirclePoly:
                                      self.log_size())[0]
 
 
+def _check_points(domain, values: torch.Tensor, mesh) -> None:
+    """The evaluation's points: the whole domain, or with `mesh` this
+    rank's slice of it (parallel/)."""
+    n = domain.size() if mesh is None else domain.size() // mesh.size
+    if int(values.shape[-1]) != n:
+        raise ValueError("domain/values size mismatch")
+
+
 @dataclass
 class CircleEvaluation:
     """Values over a CircleDomain in bit-reversed order
-    (poly/circle/evaluation.ts:17)."""
+    (poly/circle/evaluation.ts:17).  With `mesh`, `values` is this rank's
+    slice of the points of a point-sharded column (parallel/)."""
 
     domain: CircleDomain
-    values: torch.Tensor  # int32 [n]
+    values: torch.Tensor  # int32 [n], or [n / mesh.size] with a mesh
+    mesh: Optional[object] = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
-        if int(self.values.shape[-1]) != self.domain.size():
-            raise ValueError("domain/values size mismatch")
+        _check_points(self.domain, self.values, self.mesh)
 
     def interpolate(self, tree: Optional[TwiddleTree] = None) -> CirclePoly:
         return CirclePoly(interpolate_values(self.values, self.domain, tree))
@@ -172,17 +183,18 @@ class SecureCirclePoly:
 
 @dataclass
 class SecureEvaluation:
-    """QM31 values (SoA [4, n]) over a CircleDomain, bit-reversed order."""
+    """QM31 values (SoA [4, n]) over a CircleDomain, bit-reversed order;
+    with `mesh`, this rank's slice of the points (parallel/)."""
 
     domain: CircleDomain
-    values: torch.Tensor  # int32 [4, n]
+    values: torch.Tensor  # int32 [4, n], or [4, n / mesh.size] with a mesh
+    mesh: Optional[object] = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
-        if int(self.values.shape[-1]) != self.domain.size():
-            raise ValueError("domain/values size mismatch")
+        _check_points(self.domain, self.values, self.mesh)
 
     def __len__(self) -> int:
-        return int(self.values.shape[-1])
+        return self.domain.size()
 
     def interpolate(self, tree: Optional[TwiddleTree] = None) -> SecureCirclePoly:
         return SecureCirclePoly(interpolate_values(self.values, self.domain, tree))
@@ -192,6 +204,29 @@ class SecureEvaluation:
 
     def at(self, i: int) -> QM31:
         return QM31.from_ints([int(v) for v in self.values[:, i].tolist()])
+
+
+class CosetSubEvaluation:
+    """Strided wraparound view over an evaluation's values
+    (reference poly/circle/evaluation.ts CosetSubEvaluation): element i is
+    ``values[(offset + i * step) & (len(values) - 1)]``."""
+
+    def __init__(self, values, offset: int, step: int):
+        n = len(values)
+        if n & (n - 1):
+            raise ValueError("values length must be a power of two")
+        self._values = values
+        self._offset = offset
+        self._step = step
+        self._mask = n - 1
+
+    def at(self, index: int):
+        return self._values[(self._offset + index * self._step) & self._mask]
+
+    get = at
+
+    def __getitem__(self, index: int):
+        return self.at(index)
 
 
 def _fold_columns(coeff_stack: torch.Tensor, factors) -> torch.Tensor:

@@ -6,8 +6,8 @@ reference poly/line.ts.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Sequence
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -115,11 +115,13 @@ class LineEvaluation:
     reference poly/line.ts:241-329 (values there are natural-order in the
     scalar port; FRI always uses bit-reversed order, which is what we store,
     matching Rust's LineEvaluation<B> with BitReversedOrder semantics in
-    fri.rs usage).
+    fri.rs usage).  With `mesh`, `values` is this rank's slice of the
+    points of a point-sharded evaluation (parallel/).
     """
 
     domain: LineDomain
-    values: torch.Tensor  # int32 [4, n]
+    values: torch.Tensor  # int32 [4, n], or [4, n / mesh.size] with a mesh
+    mesh: Optional[object] = field(default=None, repr=False, compare=False)
 
     @staticmethod
     def new_zero(domain: LineDomain, device="cpu") -> "LineEvaluation":
@@ -128,7 +130,7 @@ class LineEvaluation:
                                 device=device))
 
     def __len__(self) -> int:
-        return int(self.values.shape[-1])
+        return self.domain.size()
 
     def at(self, i: int) -> QM31:
         return QM31.from_ints([int(self.values[c, i]) for c in range(4)])

@@ -146,13 +146,20 @@ def channel_state_from_dict(d: Dict[str, Any]) -> Blake2sChannel:
 # the Fiat-Shamir transcript state plus every committed tree's polynomials,
 # evaluations and Merkle layers -- into one .npz; `load_prover_checkpoint`
 # restores a CommitmentSchemeProver on a device that continues to a
-# byte-identical proof without re-running any committed work.
+# byte-identical proof without re-running any committed work.  A mesh
+# prove (parallel/) saves whole arrays, gathered from every rank, with
+# "mesh": true, and loads onto a mesh by slicing them again.
 # ---------------------------------------------------------------------------
 
 def prover_checkpoint_arrays(scheme, channel):
     """(meta dict, {name: numpy uint32 array}) snapshot of a
-    CommitmentSchemeProver with N committed trees + the channel state."""
-    from .utils import to_numpy_u32
+    CommitmentSchemeProver with N committed trees + the channel state.
+    Under a mesh every rank must call it: the sharded evaluations and
+    Merkle layers are gathered to whole arrays."""
+    from .parallel.ops import gather_points
+    from .utils import to_host, to_numpy_u32
+
+    mesh = scheme.mesh
 
     meta: Dict[str, Any] = {
         "channel": channel_state_to_dict(channel),
@@ -162,10 +169,10 @@ def prover_checkpoint_arrays(scheme, channel):
                     scheme.config.fri_config.log_blowup_factor,
                     scheme.config.fri_config.n_queries],
         },
-        # the flavour is recorded so that a load cannot rebuild the wrong
-        # Merkle prover class; the port proves on one device (no mesh)
+        # the flavour and the mesh are recorded so that a load cannot
+        # rebuild the wrong Merkle prover class
         "merkle_flavor": scheme.merkle_ops.name,
-        "mesh": False,
+        "mesh": mesh is not None,
         "trees": [],
     }
     arrays: Dict[str, Any] = {}
@@ -178,35 +185,45 @@ def prover_checkpoint_arrays(scheme, channel):
         for pi, poly in enumerate(tree.polynomials):
             arrays[f"t{ti}_p{pi}"] = to_numpy_u32(poly.coeffs)
         for ei, ev in enumerate(tree.evaluations):
-            arrays[f"t{ti}_e{ei}"] = to_numpy_u32(ev.values)
+            arrays[f"t{ti}_e{ei}"] = to_host(ev)
         for li, layer in enumerate(tree.commitment.layers):
+            if mesh is not None and tree.commitment.sharded \
+                    and li >= mesh.log_size:
+                layer = gather_points(mesh, layer)
             arrays[f"t{ti}_l{li}"] = to_numpy_u32(layer)
     return meta, arrays
 
 
 def save_prover_checkpoint(path: str, scheme, channel) -> None:
+    """Write the snapshot to `path`.  Under a mesh every rank calls it,
+    rank 0 writes, and no rank returns before the file is written."""
     import json
 
     import numpy as np
 
     meta, arrays = prover_checkpoint_arrays(scheme, channel)
-    np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+    if scheme.mesh is None or scheme.mesh.rank == 0:
+        np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+    if scheme.mesh is not None:
+        scheme.mesh.barrier()
 
 
-def load_prover_checkpoint(path: str, twiddles, device="cpu"):
-    """Restore (scheme, channel) on `device`; `twiddles` is the same
-    TwiddleTree a fresh prove would precompute (deterministic from the
-    domain sizes).
+def load_prover_checkpoint(path: str, twiddles, device="cpu", mesh=None):
+    """Restore (scheme, channel) on `device`, or with `mesh` (parallel/)
+    on the mesh's device with every column the mesh shards sliced to this
+    rank's part; `twiddles` is the same TwiddleTree a fresh prove would
+    precompute (deterministic from the domain sizes).
 
-    The checkpoint records its Merkle flavour, and the matching prover
-    class is rebuilt; an unknown flavour is refused, and so is a checkpoint
-    of a mesh-sharded prove (the JAX package's multi-device path), which
-    this single-device prover cannot continue."""
+    The checkpoint records its Merkle flavour and whether it was saved
+    from a mesh prove (the port's or the JAX package's).  The matching
+    prover class is rebuilt; an unknown flavour is refused, and so is a
+    mesh checkpoint without `mesh`."""
     import json
 
     import numpy as np
 
     from .circle import CanonicCoset
+    from .parallel.merkle import ShardedMerkleProver
     from .pcs.prover import CommitmentSchemeProver, CommitmentTreeProver
     from .poly.circle_poly import CircleEvaluation, CirclePoly
     from .utils import to_torch_u32
@@ -223,27 +240,45 @@ def load_prover_checkpoint(path: str, twiddles, device="cpu"):
     if flavor not in MERKLE_OPS:
         raise ValueError(f"checkpoint has unsupported Merkle flavor "
                          f"{flavor!r}; known: {sorted(MERKLE_OPS)}")
-    if meta.get("mesh", False):
+    if meta.get("mesh", False) and mesh is None:
         raise ValueError(
-            "checkpoint was saved from a mesh-sharded prove; the port "
-            "proves on one device and cannot continue it")
+            "checkpoint was saved from a mesh-sharded prove; pass a "
+            "parallel.Mesh to load_prover_checkpoint(mesh=...)")
     prover_cls = {"blake2s": MerkleProver,
                   "poseidon252": Poseidon252MerkleProver}[flavor]
     scheme = CommitmentSchemeProver(cfg, twiddles, device=device,
-                                    merkle_ops=MERKLE_OPS[flavor])
+                                    merkle_ops=MERKLE_OPS[flavor], mesh=mesh)
 
-    def tensor(name):
-        return to_torch_u32(data[name], scheme.device)
+    def tensor(name, sliced=False):
+        """The array `name` on the scheme's device, or this rank's slice
+        of its last axis."""
+        arr = data[name]
+        if sliced:
+            start, stop = mesh.local_range(arr.shape[-1])
+            arr = arr[..., start:stop]
+        return to_torch_u32(arr, scheme.device)
 
     for ti, tmeta in enumerate(meta["trees"]):
         tree = CommitmentTreeProver.__new__(CommitmentTreeProver)
         tree.polynomials = [CirclePoly(tensor(f"t{ti}_p{pi}"))
                             for pi in range(len(tmeta["poly_logs"]))]
+        logs = tmeta["eval_logs"]
+        shards = [mesh is not None and mesh.shards(log) for log in logs]
         tree.evaluations = [
             CircleEvaluation(CanonicCoset.new(log).circle_domain(),
-                             tensor(f"t{ti}_e{ei}"))
-            for ei, log in enumerate(tmeta["eval_logs"])]
-        tree.commitment = prover_cls(
-            [tensor(f"t{ti}_l{li}") for li in range(tmeta["n_layers"])])
+                             tensor(f"t{ti}_e{ei}", shards[ei]),
+                             mesh if shards[ei] else None)
+            for ei, log in enumerate(logs)]
+        n_layers = tmeta["n_layers"]
+        if mesh is None:
+            tree.commitment = prover_cls(
+                [tensor(f"t{ti}_l{li}") for li in range(n_layers)])
+        else:
+            # a sharded tree's layers from log k = mesh.log_size down to
+            # the leaves are the rank's subtree slices (parallel/merkle.py)
+            sharded = any(shards)
+            tree.commitment = ShardedMerkleProver(mesh, [
+                tensor(f"t{ti}_l{li}", sharded and li >= mesh.log_size)
+                for li in range(n_layers)], sharded)
         scheme.trees.append(tree)
     return scheme, channel

@@ -1,19 +1,22 @@
 """Phase-scoped host timing for the prover pipeline.
 
 `span(name)` is a no-op unless `enable()` was called; then it adds the
-wall time of the block to `totals()[name]`.  CUDA work is asynchronous, so
-an enabled span synchronises the CUDA device (once CUDA is in use) on
-entry and exit: its time holds the device work the block launched, at the
-cost of the host/device overlap the synchronisation removes.
+wall time of the block to `totals()[name]` and appends one record
+`{"name", "seconds", "t0"}` to `records()`; `report()` formats the
+totals.  CUDA work is asynchronous, so an enabled span synchronises the
+CUDA device (once CUDA is in use) on entry and exit: its time holds the
+device work the block launched, at the cost of the host/device overlap
+the synchronisation removes.
 """
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, List
 
 _enabled = False
+_records: List[dict] = []
 _totals: Dict[str, float] = defaultdict(float)
 
 
@@ -28,7 +31,12 @@ def disable() -> None:
 
 
 def reset() -> None:
+    _records.clear()
     _totals.clear()
+
+
+def records() -> List[dict]:
+    return list(_records)
 
 
 def totals() -> Dict[str, float]:
@@ -54,4 +62,13 @@ def span(name: str):
         yield
     finally:
         _sync()
-        _totals[name] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        _records.append({"name": name, "seconds": dt, "t0": t0})
+        _totals[name] += dt
+
+
+def report() -> str:
+    lines = ["phase timings:"]
+    for name, total in sorted(_totals.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {name:<40s} {total * 1e3:10.2f} ms")
+    return "\n".join(lines)

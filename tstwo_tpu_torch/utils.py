@@ -98,6 +98,34 @@ def entry_device(device=None):
     return torch.device("cuda", 0)
 
 
+def mesh_device(mesh=None, device=None):
+    """The device of an entry point given a `mesh` (parallel/): the mesh
+    decides it, and a `device` that differs raises; without a mesh,
+    `entry_device(device)`."""
+    if mesh is None:
+        return entry_device(device)
+    import torch
+
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"the mesh runs on {mesh.device}, not {device}")
+    return mesh.device
+
+
+def to_host(x) -> np.ndarray:
+    """A column on the host as numpy uint32: a tensor as it is, or an
+    evaluation (CircleEvaluation, SecureEvaluation, LineEvaluation) whose
+    `mesh` says it is point-sharded, gathered from every rank first (a
+    collective: every rank calls it).  The counterpart of the JAX
+    package's `utils.to_host`."""
+    mesh = getattr(x, "mesh", None)
+    values = getattr(x, "values", x)
+    if mesh is not None:
+        from .parallel.ops import gather_points
+
+        values = gather_points(mesh, values)
+    return to_numpy_u32(values)
+
+
 def to_numpy_u32(t) -> np.ndarray:
     """int32 tensor (any device) -> numpy uint32 array with the same bits."""
     return t.detach().cpu().contiguous().numpy().view(np.uint32)

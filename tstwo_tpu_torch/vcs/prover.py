@@ -32,20 +32,41 @@ class MerkleDecommitment:
         return 32 * len(self.hash_witness) + 4 * len(self.column_witness)
 
 
+def stack_column_groups(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A layer's column entries (1-D columns and/or 2-D [C, n] stacks) as
+    one 2-D [total_cols, n] tensor, in order."""
+    if len(cols) == 1:
+        c = cols[0]
+        return c if c.ndim == 2 else c[None, :]
+    if all(c.ndim == 1 for c in cols):
+        return torch.stack(list(cols))
+    return torch.cat([c if c.ndim == 2 else c[None, :] for c in cols], dim=0)
+
+
+def column_count(cols: Sequence[torch.Tensor]) -> int:
+    """Number of logical columns across 1-D / 2-D [C, n] entries."""
+    return sum(int(c.shape[0]) if c.ndim == 2 else 1 for c in cols)
+
+
 def plan_decommitment(queries_per_log_size: Mapping[int, Sequence[int]],
-                      n_layers: int, columns: Sequence[torch.Tensor]):
+                      n_layers: int, columns: Sequence[torch.Tensor],
+                      log_sizes: Optional[Sequence[int]] = None):
     """Index-only traversal: per layer (big->small) the visited nodes,
     which child hashes enter the witness, and which nodes carry queried
-    values (reference vcs/prover.ts:32-109)."""
-    cols_sorted = sorted(columns, key=lambda c: -c.shape[-1])
+    values (reference vcs/prover.ts:32-109).  `log_sizes` are the
+    columns' log sizes where their lengths do not say it (the rank's slice
+    of a sharded column)."""
+    if log_sizes is None:
+        log_sizes = [int(c.shape[-1]).bit_length() - 1 for c in columns]
+    order = sorted(range(len(columns)), key=lambda i: -log_sizes[i])
     col_idx = 0
     layer_plans = []
     last_layer_queries: List[int] = []
     for layer_log in range(n_layers - 1, -1, -1):
         layer_cols: List[torch.Tensor] = []
-        while (col_idx < len(cols_sorted)
-               and cols_sorted[col_idx].shape[-1] == (1 << layer_log)):
-            layer_cols.append(cols_sorted[col_idx])
+        while (col_idx < len(order)
+               and log_sizes[order[col_idx]] == layer_log):
+            layer_cols.append(columns[order[col_idx]])
             col_idx += 1
         has_children = layer_log + 1 < n_layers
         plan = {
@@ -157,13 +178,19 @@ class MerkleProver:
         self,
         queries_per_log_size: Mapping[int, Sequence[int]],
         columns: Sequence[torch.Tensor],
+        log_sizes: Optional[Sequence[int]] = None,
     ) -> Tuple[List[M31], MerkleDecommitment]:
         """Witness assembly (reference vcs/prover.ts:32-109).  Entries of
-        `columns` may be single columns or [C, n] stacks."""
+        `columns` may be single columns or [C, n] stacks; `log_sizes`, if
+        given, are their log sizes (the sharded tree needs them)."""
         plans = plan_decommitment(queries_per_log_size, len(self.layers),
-                                  columns)
-        # every hash and value the witness needs, gathered on the device and
-        # copied to the host in one transfer
+                                  columns, log_sizes)
+        return self._assemble(plans, self._witness_parts(plans))
+
+    def _witness_parts(self, plans):
+        """Every hash and value the witness needs, gathered on the device
+        and copied to the host in one transfer: per plan, the numpy
+        [8, hashes] and [columns, nodes] arrays (or None)."""
         parts, slots = [], []
         for plan in plans:
             log = plan["log"]
@@ -176,12 +203,17 @@ class MerkleProver:
                 parts.append(_gather(plan["cols"], plan["node_idxs"]))
             slots.append(slot)
         host = _to_host(parts)
+        return [(host[slot["hashes"]] if "hashes" in slot else None,
+                 host[slot["values"]] if "values" in slot else None)
+                for slot in slots]
 
+    def _assemble(self, plans, witness_parts
+                  ) -> Tuple[List[M31], MerkleDecommitment]:
+        """The queried values and the decommitment, in the traversal's
+        order, from the host arrays of `_witness_parts`."""
         queried: List[M31] = []
         dec = MerkleDecommitment()
-        for plan, slot in zip(plans, slots):
-            hashes = host[slot["hashes"]] if "hashes" in slot else None
-            values = host[slot["values"]] if "values" in slot else None
+        for plan, (hashes, values) in zip(plans, witness_parts):
             hi = 0
             for si, (node, witness_children, was_queried) in enumerate(
                     plan["steps"]):
