@@ -11,7 +11,12 @@ read just after:
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
     committed JAX proof, a 2^12 x 32 CUDA proof against the CPU one, then
     proves and verifies 2^16 x 32 and 2^18 x 64 (pow_bits 5: the grind
-    stays on the host, and the grind kernel must not launch);
+    stays on the host, and the grind kernel must not launch; every tree's
+    root and every FRI layer goes through the transcript kernel); then the
+    FRI commit of a 2^18 x 64 prove's quotients with the transcript on the
+    host (`commit_host`) and on the card (`commit`): the same result, the
+    host round trips of each counted, `commit`'s dispatch free of any
+    synchronising call;
   * the proof-of-work grind, host against card at pow_bits 12, 16, 20
     and 26, then wide Fibonacci 2^18 x 64 at 96 bits of security
     (stwo-cairo's secure_pcs_config: pow_bits 26, 70 queries), which must
@@ -32,16 +37,17 @@ read just after:
     must launch the Poseidon layer kernel and no Blake2s kernel;
   * the Poseidon sponge (`ops.poseidon252.poseidon_hash_many`) over 2^16
     rows, which runs the Hades permutation kernel, against the host's
-    hash;
+    hash (the Poseidon252 path must not launch the Blake2s transcript
+    kernel either: its transcript stays on the host channel);
   * the mesh prove (`prove_wide_fibonacci(..., mesh=)`, tstwo_tpu_torch/
     parallel): ranks started as processes of this script (`--mesh-rank`),
     each under a timeout, every one on the one card -- one NCCL rank at
     2^18 x 64, two gloo ranks at 2^16 x 32 and four gloo ranks at
     2^18 x 64.  Every rank's proof must equal the single-device proof of
     the same size byte for byte, every rank must launch the CFFT, Merkle
-    layer, Merkle tail and deinterleave kernels, and every rank's Merkle
-    leaves must cover n/D rows of each sharded column.  Its walls are
-    those of ranks sharing one card, not of a multi-GPU run.
+    layer, Merkle tail, deinterleave and transcript kernels, and every
+    rank's Merkle leaves must cover n/D rows of each sharded column.  Its
+    walls are those of ranks sharing one card, not of a multi-GPU run.
 
 Each phase prints one line (name, seconds, result); any failure exits
 non-zero.  The second-to-last line is the kernel table as JSON, the last
@@ -90,6 +96,9 @@ REPLACES = {
                    "tstwo_tpu/ops/pallas/interleave.py:50",
     "blake2s_grind": "tstwo_tpu/ops/blake2s.py:262 (via "
                      "tstwo_tpu/proof_of_work.py:29)",
+    # no Pallas kernel: the jitted device transcript of the JAX package
+    "blake2s_transcript": "tstwo_tpu/channel/device.py:89 draw_base_felts, "
+                          ":59 mix_root (jitted program)",
     "deinterleave": "tstwo_tpu/ops/pallas/interleave.py:50",
     "m31_mul": "tstwo_tpu/ops/pallas/m31_kernels.py:58",
     "m31_mul_chain": "tstwo_tpu/ops/pallas/m31_kernels.py:90",
@@ -173,34 +182,18 @@ def max_abs_err(a, b) -> int:
 
     if a.shape != b.shape:
         fail(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def compare_kernels(device):
-    """Phase 3: every kernel against its plain version at the shapes its
-    paths give it (exact: tolerance 0).  Returns the kernel-table rows."""
-    import numpy as np
+def row_checker(rows: list):
+    """`check(name, shape, kernel, plain, source, n_bytes, n_ops, ...)`,
+    which holds kernel() against plain() (exact), times both and appends a
+    row of the kernel table to `rows`."""
     import torch
 
-    from tstwo_tpu_torch.circle import CanonicCoset
     from tstwo_tpu_torch.measure_roofline import time_call, time_ms
-    from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
-    from tstwo_tpu_torch.ops import poseidon252 as pos
-    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
-    from tstwo_tpu_torch.utils import to_torch_u32
-
-    rng = np.random.default_rng(1)
-    # the twiddle trees of the 2^16 x 32 wide-Fibonacci prove and of the
-    # LogUp 2^20 prove (root cosets of log 18 and 22)
-    tree = precompute_twiddles(CanonicCoset.new(18).circle_domain().half_coset)
-    tree22 = precompute_twiddles(
-        CanonicCoset.new(22).circle_domain().half_coset)
-
-    def rand(shape, high=P):
-        return to_torch_u32(rng.integers(0, high, size=shape, dtype=np.uint64)
-                            .astype(np.uint32), device)
-
-    rows = []
 
     def check(name, shape, kernel, plain, source, n_bytes, n_ops,
               library=None, extra=None):
@@ -242,6 +235,35 @@ def compare_kernels(device):
                      else "operations",
                      "library_ms": library_ms,
                      "library_host_us": lib_t["host_us"], **(extra or {})})
+
+    return check
+
+
+def compare_kernels(device):
+    """Phase 3: every kernel against its plain version at the shapes its
+    paths give it (exact: tolerance 0).  Returns the kernel-table rows."""
+    import numpy as np
+    import torch
+
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
+    from tstwo_tpu_torch.ops import poseidon252 as pos
+    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    rng = np.random.default_rng(1)
+    # the twiddle trees of the 2^16 x 32 wide-Fibonacci prove and of the
+    # LogUp 2^20 prove (root cosets of log 18 and 22)
+    tree = precompute_twiddles(CanonicCoset.new(18).circle_domain().half_coset)
+    tree22 = precompute_twiddles(
+        CanonicCoset.new(22).circle_domain().half_coset)
+
+    def rand(shape, high=P):
+        return to_torch_u32(rng.integers(0, high, size=shape, dtype=np.uint64)
+                            .astype(np.uint32), device)
+
+    rows = []
+    check = row_checker(rows)
 
     # wide Fibonacci 2^16 x 32: extension, composition, interpolation; the
     # one-pass transform alone, at 10 and at 6 layers.  LogUp 2^20:
@@ -407,6 +429,8 @@ def compare_kernels(device):
           n_ops=B2S_OPS_PER_BLOCK * (1 << 24),
           extra={"nonces_needed": 1 << 24})
 
+    transcript_rows(check, rand, device)
+
     # wide Fibonacci 2^16 FRI layer; the LogUp 2^20 prove's largest
     # deinterleaves; the first halving of a GKR 2^20 layer.  The PyTorch
     # call for the same function is the two strided copies.
@@ -499,6 +523,73 @@ def compare_kernels(device):
     for twiddles in (tree, tree22):
         twiddles.drop_device_copies()
     return rows
+
+
+# A zero digest at n_sent 238,210,102: word 3 of that draw is 0xFFFFFFFE >=
+# 2P, so the draw is rejected whole and the hash at 238,210,103 is drawn.
+REJECTING_N_SENT = 238_210_102
+
+
+def transcript_rows(check, rand, device) -> None:
+    """Phase 3's rows of the transcript kernel (one thread; exact): the
+    mixes the channel makes -- a root (64 bytes hashed), a u64 (40 bytes)
+    and four QM31s (96 bytes, two blocks) -- an FRI layer's step (a root's
+    mix and one draw), k = 1, 2 and 5 draws, and the rejecting state; then
+    k = 1, 2 and 5 draws from five random states, unrowed.  The plain
+    version runs on the same tensors.  The bound counts the compressions
+    this data needs (a rejected draw is one more) at 656 operations each."""
+    import torch
+
+    from tstwo_tpu_torch.ops import blake2s
+
+    def count(n_sent):
+        lo, hi = (int(w) & 0xFFFFFFFF for w in n_sent.tolist())
+        return lo | hi << 32
+
+    def row(label, digest, n_sent, msg, msg_bytes, k):
+        _, out, _ = blake2s.transcript_plain(digest, n_sent, msg, msg_bytes,
+                                             k)
+        blocks = 0 if msg is None else -(-(32 + msg_bytes) // 64)
+        hashes = blocks + count(out) - (count(n_sent) if msg is None else 0)
+        words = 8 + (2 if msg is None else -(-msg_bytes // 4)) + 10 + 8 * k
+        check("blake2s_transcript", label,
+              lambda: blake2s.transcript_cuda(digest, n_sent, msg, msg_bytes,
+                                              k),
+              lambda: blake2s.transcript_plain(digest, n_sent, msg,
+                                               msg_bytes, k),
+              "blake2s.cu", n_bytes=4 * words,
+              n_ops=B2S_OPS_PER_BLOCK * hashes,
+              extra={"compressions": hashes})
+
+    digest, n_sent = rand(8, 1 << 32), rand(2, 1 << 20)
+    root = rand((8, 3), 1 << 32)[:, 0]  # in place in its layer, strided
+    row("mix_root: 64 B hashed", digest, None, root, 32, 0)
+    row("mix_u64: 40 B", digest, None, rand(2, 1 << 32), 8, 0)
+    row("mix_felts of 4 QM31: 96 B, two blocks", digest, None, rand(16), 64,
+        0)
+    row("FRI layer: mix_root + 1 draw", digest, None, root, 32, 1)
+    for k in (1, 2, 5):
+        row(f"{k} draw(s)", digest, n_sent, None, None, k)
+    zero = torch.zeros(8, dtype=torch.int32, device=device)
+    rejecting = torch.tensor([REJECTING_N_SENT, 0], dtype=torch.int32,
+                             device=device)
+    row(f"rejecting state: zero digest, n_sent {REJECTING_N_SENT}, 1 draw",
+        zero, rejecting, None, None, 1)
+    got = blake2s.transcript_cuda(zero, rejecting, k=1)
+    if got[1].tolist() != [REJECTING_N_SENT + 2, 0]:
+        fail(f"the rejecting state drew at n_sent {got[1].tolist()}")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        digest, n_sent = rand(8, 1 << 32), rand(2, 1 << 32)
+        for k in (1, 2, 5):
+            for g, w in zip(blake2s.transcript_cuda(digest, n_sent, k=k),
+                            blake2s.transcript_plain(digest, n_sent, k=k)):
+                if max_abs_err(g, w):
+                    fail(f"blake2s_transcript: {k} draws from a random "
+                         "state disagree with the plain version")
+    phase("kernel blake2s_transcript five random states",
+          time.perf_counter() - t0,
+          "k = 1, 2, 5 draws from each (64-bit counts) exact")
 
 
 def grind_digests() -> list:
@@ -625,7 +716,11 @@ def main() -> None:
         "merkle_layer": launches["merkle_layer"],
         "merkle_tail": launches["merkle_tail"],
         "deinterleave": launches["deinterleave"],
+        "blake2s_transcript": launches["blake2s_transcript"],
     }
+
+    # 6b. the FRI commit with its transcript on the card against the host's
+    fri_transcript(device, card)
 
     # 7-8. the grind, host against card; the 96-bit prove, which runs it
     grind_rates(device)
@@ -656,11 +751,13 @@ def main() -> None:
 
 # what a prove through the commitment scheme must launch: both CFFTs, leaf
 # hashes, node layers that read their child pairs, the one-launch top of a
-# tree, and the folds' deinterleave.  The grind kernel (`blake2s_grind`)
+# tree, the folds' deinterleave, and the transcript step that mixes each
+# tree's root on the card (one a tree commit, one an FRI layer).  The grind kernel (`blake2s_grind`)
 # runs only where pow_bits >= 12 (proof_of_work.grind): the pow_bits-5
 # proves forbid it, the 96-bit prove requires it beside these.
 MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
-                     "merkle_layer", "merkle_tail", "deinterleave")
+                     "merkle_layer", "merkle_tail", "deinterleave",
+                     "blake2s_transcript")
 SECURE_POW_BITS, SECURE_QUERIES = 26, 70  # stwo-cairo's secure_pcs_config
 
 
@@ -689,6 +786,138 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+FRI_WALL_REPEATS = 5
+
+
+def fri_transcript(device, card: str, log_n: int = 18, seq: int = 64) -> None:
+    """Phase 6b: the FRI commit of a warm wide-Fibonacci 2^18 x 64 prove
+    (its quotient columns, log 20 and 19, captured from the prove) run by
+    `commit_host` (transcript on the host channel) and by `commit`
+    (transcript on the card) from the same channel state, in one call.
+    Both must give the same roots, channel state, inner layers and
+    last-layer poly.  The host round trips of each are counted under
+    torch.cuda.set_sync_debug_mode("warn") (and the copies by the
+    profiler); `commit`'s dispatch part, before its one fetch, runs under
+    "error": a synchronising call there fails the phase.  Walls are
+    medians of FRI_WALL_REPEATS, each ended by a synchronise."""
+    import statistics
+    import warnings
+
+    import torch
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
+    from tstwo_tpu_torch.fri import FriProver
+
+    t0 = time.perf_counter()
+    captured = {}
+    original = FriProver.commit
+
+    def capture(channel, config, columns, twiddles, **kw):
+        captured.update(channel=channel.clone(),
+                        args=(config, columns, twiddles), kw=kw)
+        return original(channel, config, columns, twiddles, **kw)
+
+    FriProver.commit = staticmethod(capture)
+    try:
+        prove_wide_fibonacci(log_n, seq, seed=0, device=device)
+    finally:
+        FriProver.commit = staticmethod(original)
+    config, columns = captured["args"][:2]
+    logs = [c.domain.log_size() for c in columns]
+
+    def run(commit):
+        channel = captured["channel"].clone()
+        return channel, commit(channel, *captured["args"], **captured["kw"])
+
+    def roots(prover):
+        return [prover.first_layer.merkle_tree.root()] + [
+            l.merkle_tree.root() for l in prover.inner_layers]
+
+    for commit in (FriProver.commit_host, FriProver.commit):  # warm
+        run(commit)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    (host_ch, host), (dev_ch, prover) = (run(FriProver.commit_host),
+                                         run(FriProver.commit))
+    launches = kernels.LAUNCHES["blake2s_transcript"]
+    if launches != 1 + len(prover.inner_layers):  # commit_host: none
+        fail(f"fri transcript: {launches} transcript launches for "
+             f"{len(prover.inner_layers)} inner layers")
+    if dev_ch != host_ch or roots(prover) != roots(host) or \
+            prover.last_layer_poly.coeffs != host.last_layer_poly.coeffs or \
+            any(not torch.equal(a.evaluation.values, b.evaluation.values)
+                for a, b in zip(prover.inner_layers, host.inner_layers)):
+        fail("fri transcript: commit differs from commit_host")
+
+    def syncs(commit) -> int:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run(commit)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def copies(commit) -> dict:
+        """Memcpy events of the device in a profiled commit, by kind."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(commit)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.name.startswith("Memcpy"):
+                kind = e.name.split(" (")[0]
+                out[kind] = out.get(kind, 0) + 1
+        return out
+
+    host_syncs, dev_syncs = syncs(FriProver.commit_host), syncs(
+        FriProver.commit)
+    torch.cuda.synchronize()
+    channel = captured["channel"].clone()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = FriProver.commit_dispatch(channel, *captured["args"],
+                                           **captured["kw"])
+    except RuntimeError as exc:
+        fail(f"fri transcript: commit's dispatch synchronised: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if finish() is None or channel != host_ch:
+        fail("fri transcript: the dispatch and its finish differ from "
+             "commit_host")
+    if dev_syncs != 1:
+        fail(f"fri transcript: commit made {dev_syncs} host round trips")
+    walls = {}
+    for name, commit in (("commit_host", FriProver.commit_host),
+                         ("commit", FriProver.commit),
+                         ("commit ", FriProver.commit),
+                         ("commit_host ", FriProver.commit_host)):
+        times = [timed(lambda: run(commit))[1]
+                 for _ in range(FRI_WALL_REPEATS)]
+        walls.setdefault(name.strip(), []).append(statistics.median(times))
+    host_copies, dev_copies = copies(FriProver.commit_host), copies(
+        FriProver.commit)
+    phase("fri transcript", time.perf_counter() - t0,
+          f"wide Fibonacci 2^{log_n} x {seq} quotients (log {logs}), "
+          f"{len(prover.inner_layers)} inner layers, on {card}: commit == "
+          f"commit_host (roots, channel, inner layers, last layer); host "
+          f"round trips (sync debug warnings) commit {dev_syncs}, "
+          f"commit_host {host_syncs}; commit's dispatch clean under "
+          f"\"error\"; device copies (profiler) commit "
+          f"{json.dumps(dev_copies, sort_keys=True)}, commit_host "
+          f"{json.dumps(host_copies, sort_keys=True)}; transcript launches "
+          f"{launches} a commit; walls (median of {FRI_WALL_REPEATS}, "
+          f"synchronised, in turns host, card, card, host) commit "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls['commit'])} ms, "
+          f"commit_host "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls['commit_host'])} ms")
 
 
 def grind_rates(device) -> None:
@@ -1092,7 +1321,7 @@ def poseidon_phases(device) -> dict:
         ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
          "deinterleave"),
         forbidden=("blake2s", "merkle_layer", "merkle_tail",
-                   "blake2s_grind"))
+                   "blake2s_grind", "blake2s_transcript"))
 
 
 def poseidon_sponge(device) -> dict:
@@ -1132,7 +1361,7 @@ def poseidon_sponge(device) -> dict:
 # single-device proofs of phase 6 are the references
 MESH_GROUPS = (("nccl", 1, 18, 64), ("gloo", 2, 16, 32), ("gloo", 4, 18, 64))
 MESH_KERNELS = ("cfft_forward", "cfft_inverse", "merkle_layer", "merkle_tail",
-                "deinterleave")
+                "deinterleave", "blake2s_transcript")
 MESH_RANK_TIMEOUT_S = 300
 
 

@@ -80,6 +80,124 @@ def test_tracing_records_and_report_match_jax():
     assert tracing.records() == [] and tracing.totals() == {}
 
 
+def _profiled_names(fn, tmp_path):
+    """The event names of a CPU torch.profiler trace of fn() (read from
+    the exported Chrome trace: key_averages() takes seconds on a prove)."""
+    import json
+
+    import torch.profiler
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return {e.get("name") for e in json.loads(path.read_text())[
+        "traceEvents"]}
+
+
+def test_profiler_ranges_of_the_spans_show_in_a_torch_profiler_trace(
+        tmp_path):
+    """`enable(use_profiler=True)`: every span of a small CPU prove is a
+    record_function range of that name in a torch.profiler trace, the FRI
+    commit's dispatch and fetch among them; without the option a span
+    opens no range."""
+    from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
+
+    tracing.reset()
+    tracing.enable(use_profiler=True)
+    try:
+        names = _profiled_names(
+            lambda: prove_wide_fibonacci(5, 4, seed=0, device="cpu"),
+            tmp_path)
+        spans = {r["name"] for r in tracing.records()}
+        tracing.enable()
+
+        def bare():
+            with tracing.span("no_range_here"):
+                pass
+
+        bare_names = _profiled_names(bare, tmp_path)
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert {"fri_commit", "fri_fused_dispatch", "fri_state_fetch",
+            "fri_last_layer", "channel_sync", "merkle"} <= spans
+    assert spans <= names
+    assert "no_range_here" not in bare_names
+
+
+# -- the API diff -------------------------------------------------------------
+
+# What of the JAX package's public surface the port leaves out on purpose
+# (ROADMAP.md section 1, "Not to port"): TPU workarounds, JAX's sharding
+# specs and jit caches, the limb arithmetic a TPU lane needs.
+NOT_PORTED_MODULES = {"native", "native._tstwo_native", "ops.pallas",
+                      "ops.pallas.fft_kernels", "ops.pallas.interleave",
+                      "ops.pallas.m31_kernels", "utils_fetch"}
+NOT_PORTED_NAMES = {
+    "backend": {"XlaBackend"}, "ops.cm31": {"pack"}, "ops.qm31": {"pack"},
+    "ops.m31": {"asarray", "np_add", "np_mul", "np_neg", "np_sub"},
+    "ops.poseidon252": {"from_mont", "int_to_limbs", "ints_to_limb_array",
+                        "limb_array_to_ints", "limbs_to_int", "mont_mul",
+                        "to_mont"},
+    "parallel.mesh": {"col_sharding", "point_axes", "replicated"},
+    "pcs.quotients": {"pack_quotient_inputs"}}
+# class members: the deferred fetches of FetchBatch, the TPU dispatch
+# thresholds and padding, and the key of a jitted domain kernel's cache
+NOT_PORTED_MEMBERS = {"decommit_deferred", "root_deferred", "HOST_N_CPU",
+                      "HOST_N_TPU", "PAD", "kernel_cache_key"}
+
+
+def _shared_modules():
+    import importlib
+    import pkgutil
+
+    import tstwo_tpu
+    import tstwo_tpu_torch
+
+    def names(pkg):
+        return {m.name.split(".", 1)[1]: m.name
+                for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")}
+
+    ref, port = names(tstwo_tpu), names(tstwo_tpu_torch)
+    assert set(ref) - set(port) == NOT_PORTED_MODULES
+    return [(rel, importlib.import_module(ref[rel]),
+             importlib.import_module(port[rel]))
+            for rel in sorted(set(ref) & set(port))]
+
+
+def _public(module):
+    import inspect
+
+    return {n: v for n, v in vars(module).items()
+            if not n.startswith("_")
+            and (inspect.isfunction(v) or inspect.isclass(v))
+            and getattr(v, "__module__", None) == module.__name__}
+
+
+def test_port_has_every_public_name_and_class_member_of_the_reference():
+    """A name-by-name diff of the two packages: every public function and
+    class of each shared module, and every public member (method,
+    property, attribute) of each shared class, exists in the port, but
+    for the listed TPU-only names."""
+    missing, members = {}, {}
+    for rel, ref, port in _shared_modules():
+        names = set(_public(ref)) - set(vars(port))
+        if names - NOT_PORTED_NAMES.get(rel, set()):
+            missing[rel] = sorted(names)
+        for name, cls in _public(ref).items():
+            ours = getattr(port, name, None)
+            if not isinstance(cls, type) or not isinstance(ours, type):
+                continue
+            gone = {m for m in dir(cls) if not m.startswith("_")} - set(
+                dir(ours))
+            if gone - NOT_PORTED_MEMBERS:
+                members[f"{rel}.{name}"] = sorted(gone - NOT_PORTED_MEMBERS)
+    assert missing == {} and members == {}
+
+
 # -- poly -------------------------------------------------------------------
 
 @pytest.mark.parametrize("offset,step", [(0, 1), (3, 5), (13, 7)])

@@ -334,10 +334,12 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     pos.poseidon_hash_many([leaves, leaves, leaves])  # two sponge steps
     blake2s.grind_batch(blake2s.digest_bytes_to_words(b"\x00" * 32), 0, 64,
                         1, device)
+    blake2s.transcript(_rand(rng, (8,), device, 1 << 32),
+                       msg=_rand(rng, (8,), device, 1 << 32), k=1)
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
                                 "blake2s": 2, "merkle_layer": 1,
                                 "merkle_tail": 1, "blake2s_grind": 1,
-                                "deinterleave": 1,
+                                "blake2s_transcript": 1, "deinterleave": 1,
                                 "m31_mul": 1, "m31_mul_chain": 1,
                                 "hades_permutation": 2,
                                 "poseidon_merkle_layer": 2}
@@ -588,3 +590,140 @@ def test_poseidon_prove_on_the_card_equals_the_cpu_prove(device):
         b.fri_proof.first_layer.commitment
     assert [l.commitment for l in a.fri_proof.inner_layers] == \
         [l.commitment for l in b.fri_proof.inner_layers]
+
+
+# -- the device transcript ----------------------------------------------------
+
+def _transcript_case(seed, msg_words, device):
+    rng = np.random.default_rng(seed)
+    digest = _rand(rng, (8,), device, 1 << 32)
+    n_sent = _rand(rng, (2,), device, 1 << 32)
+    msg = None if msg_words is None else _rand(rng, (msg_words,), device,
+                                               1 << 32)
+    return digest, n_sent, msg
+
+
+def _cpu(t):
+    return None if t is None else t.cpu()
+
+
+@pytest.mark.parametrize("msg_bytes", [None, 0, 3, 8, 32, 33, 64, 100])
+@pytest.mark.parametrize("k", [0, 1, 2, 5])
+def test_transcript_kernel_matches_plain(device, msg_bytes, k):
+    digest, n_sent, msg = _transcript_case(
+        10 * k + (msg_bytes or 0), None if msg_bytes is None
+        else -(-msg_bytes // 4) + 1, device)
+    got = blake2s.transcript_cuda(digest, n_sent, msg, msg_bytes, k)
+    want = blake2s.transcript_plain(_cpu(digest), _cpu(n_sent), _cpu(msg),
+                                    msg_bytes, k)
+    for g, w in zip(got, want):
+        _exact(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_transcript_kernel_rejects_the_rejecting_state(device, k):
+    """Zero digest, n_sent 238,210,102: word 3 of that draw is 0xFFFFFFFE."""
+    digest = torch.zeros(8, dtype=torch.int32, device=device)
+    n_sent = torch.tensor([238_210_102, 0], dtype=torch.int32, device=device)
+    got = blake2s.transcript_cuda(digest, n_sent, k=k)
+    want = blake2s.transcript_plain(digest.cpu(), n_sent.cpu(), k=k)
+    for g, w in zip(got, want):
+        _exact(g, w)
+    assert got[1].cpu().tolist() == [238_210_102 + 1 + k, 0]
+
+
+def test_transcript_kernel_reads_a_root_in_its_layer(device):
+    """The root of a tree whose top came from merkle_tail: a column of a
+    wider buffer, its words a stride apart."""
+    rng = np.random.default_rng(4)
+    digest = _rand(rng, (8,), device, 1 << 32)
+    layer = _rand(rng, (8, 7), device, 1 << 32)
+    root = layer[:, 0]
+    assert not root.is_contiguous()
+    got = blake2s.transcript_cuda(digest, msg=root, k=1)
+    want = blake2s.transcript_plain(digest.cpu(), msg=root.cpu(), k=1)
+    for g, w in zip(got, want):
+        _exact(g, w)
+
+
+def test_transcript_wrapper_guards(device):
+    digest = torch.zeros(8, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        blake2s.transcript_cuda(digest)  # neither a message nor n_sent
+    with pytest.raises(ValueError):
+        blake2s.transcript_cuda(digest, msg=digest, msg_bytes=33)
+    with pytest.raises(ValueError):
+        blake2s.transcript_cuda(digest, msg=digest.cpu())
+
+
+def test_device_channel_on_the_card_equals_the_cpu(device):
+    from tstwo_tpu_torch.channel import device as dev
+
+    rng = np.random.default_rng(5)
+    digest, n_sent, root = _transcript_case(5, 8, device)
+    felts = _rand(rng, (3, 4), device)
+    cases = [
+        lambda d, n, r, f: dev.mix_root(d, r),
+        lambda d, n, r, f: dev.mix_root_and_draw_felt(d, r),
+        lambda d, n, r, f: dev.mix_u64(d, (1 << 40) + 9),
+        lambda d, n, r, f: dev.mix_u64(d, r[:2]),
+        lambda d, n, r, f: dev.mix_felts(d, f),
+        lambda d, n, r, f: dev.draw_base_felts(d, n),
+        lambda d, n, r, f: dev.draw_felt(d, n),
+        lambda d, n, r, f: dev.draw_felts(d, n, 5)]
+    for case in cases:
+        got = case(digest, n_sent, root, felts)
+        want = case(digest.cpu(), n_sent.cpu(), root.cpu(), felts.cpu())
+        for g, w in zip(got, want):
+            _exact(g, w)
+
+
+def test_lazy_device_digest_on_the_card(device):
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+
+    root = _rand(np.random.default_rng(6), (8,), device, 1 << 32)
+    lazy, host = Blake2sChannel(), Blake2sChannel()
+    kernels.reset_launches()
+    lazy.mix_root_device(root)
+    assert kernels.LAUNCHES["blake2s_transcript"] == 1
+    assert lazy._device_digest.device.type == "cuda"
+    host.mix_root(blake2s.digest_words_to_bytes(root.cpu().numpy()))
+    assert lazy == host
+    assert lazy.draw_felt() == host.draw_felt()
+
+
+@pytest.mark.parametrize("log_degrees", [[9, 8], [12]])
+def test_fri_commit_on_the_card_equals_commit_host_without_a_sync(
+        device, log_degrees):
+    """`commit` == `commit_host` on the card, and its dispatch part makes
+    no synchronising call: launches only, under sync debug mode "error"."""
+    from tstwo_tpu_torch import fri
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.poly.circle_poly import SecureCirclePoly
+    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
+
+    rng = np.random.default_rng(sum(log_degrees))
+    cols = [SecureCirclePoly(_rand(rng, (4, 1 << d), device)).evaluate(
+        CanonicCoset.new(d + 1).circle_domain()) for d in log_degrees]
+    tree = precompute_twiddles(cols[0].domain.half_coset)
+    config = fri.FriConfig(0, 1, 3)
+    host_ch, ch = Blake2sChannel(), Blake2sChannel()
+    host = fri.FriProver.commit_host(host_ch, config, cols, tree)
+    fri.FriProver.commit(Blake2sChannel(), config, cols, tree)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = fri.FriProver.commit_dispatch(ch, config, cols, tree)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prover = finish()
+    assert kernels.LAUNCHES["blake2s_transcript"] == 1 + len(
+        prover.inner_layers)
+    assert ch == host_ch
+    assert [l.merkle_tree.root() for l in prover.inner_layers] == [
+        l.merkle_tree.root() for l in host.inner_layers]
+    assert prover.first_layer.merkle_tree.root() == \
+        host.first_layer.merkle_tree.root()
+    assert prover.last_layer_poly.coeffs == host.last_layer_poly.coeffs

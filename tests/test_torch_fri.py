@@ -35,6 +35,7 @@ from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
 from tstwo_tpu_torch.queries import Queries
 from tstwo_tpu_torch.serialize import fri_layer_to_dict
 from tstwo_tpu_torch.utils import to_numpy_u32, to_torch_u32
+from tstwo_tpu_torch.vcs.ops import Blake2sMerkleOps
 
 P = (1 << 31) - 1
 ALPHA = [123456789, 987654321, P - 1, 42]
@@ -173,6 +174,129 @@ def test_commit_host_proof_matches_jax_fused_commit():
         q = queries.fold(queries.log_domain_size - se.domain.log_size())
         evals.append([se.at(p) for p in q.positions])
     verifier.decommit_on_queries(queries, evals)
+
+
+def _commit_inputs(log_degrees, seed):
+    coeffs = [_values(seed + d, (4, 1 << d)) for d in log_degrees]
+    ours = [_secure_eval(SecureCirclePoly, CanonicCoset, c, d + 1,
+                         to_torch_u32) for c, d in zip(coeffs, log_degrees)]
+    theirs = [_secure_eval(JaxSecureCirclePoly, JaxCanonicCoset, c, d + 1,
+                           jnp.asarray) for c, d in zip(coeffs, log_degrees)]
+    return (ours, precompute_twiddles(ours[0].domain.half_coset), theirs,
+            jax_twiddles(theirs[0].domain.half_coset))
+
+
+def _layer_state(prover):
+    """Roots, every inner layer's values and the last-layer poly."""
+    return ([prover.first_layer.merkle_tree.root()]
+            + [l.merkle_tree.root() for l in prover.inner_layers],
+            [np.asarray(to_numpy_u32(l.evaluation.values)
+                        if hasattr(l.evaluation.values, "numpy")
+                        else l.evaluation.values).tolist()
+             for l in prover.inner_layers],
+            [c.to_ints() for c in prover.last_layer_poly.coeffs])
+
+
+@pytest.mark.parametrize("log_degrees,last_bound,start", [
+    ([8, 7], 1, None), ([7, 6, 4], 0, (bytes(32), 238_210_100)),
+    ([9], 2, (bytes(range(32)), 5))])
+def test_commit_matches_jax_commit_and_commit_host(log_degrees, last_bound,
+                                                   start):
+    """The port's device-transcript commit == its host-transcript commit ==
+    the JAX package's commit: channel digest and ChannelTime, every root,
+    the inner-layer values, the last-layer poly and the decommitment on
+    fixed queries, from channels with draws and mixes behind them."""
+    from tstwo_tpu.channel import ChannelTime as JaxChannelTime
+    from tstwo_tpu_torch.channel import ChannelTime
+
+    config = fri.FriConfig(last_bound, 1, 3)
+    jconfig = jax_fri.FriConfig(last_bound, 1, 3)
+    ours, tree, theirs, jtree = _commit_inputs(log_degrees, 200)
+    digest, n_sent = start or (bytes(32), 0)
+    ch = Blake2sChannel(digest, ChannelTime(1, n_sent))
+    host_ch = Blake2sChannel(digest, ChannelTime(1, n_sent))
+    jch = JaxChannel(digest, JaxChannelTime(1, n_sent))
+    prover = fri.FriProver.commit(ch, config, ours, tree)
+    host = fri.FriProver.commit_host(host_ch, config, ours, tree)
+    jprover = jax_fri.FriProver.commit(jch, jconfig, theirs, jtree)
+    assert ch == host_ch
+    assert ch.digest == jch.digest
+    assert (ch.channel_time.n_challenges, ch.channel_time.n_sent) == (
+        jch.channel_time.n_challenges, jch.channel_time.n_sent)
+    assert _layer_state(prover) == _layer_state(host) == _layer_state(jprover)
+    log = log_degrees[0] + 1
+    positions = [0, 3, (1 << log) // 3, (1 << log) - 1]
+    proof = prover.decommit_on_queries(Queries.from_positions(positions, log))
+    want = host.decommit_on_queries(Queries.from_positions(positions, log))
+    jproof = jprover.decommit_on_queries(
+        JaxQueries.from_positions(positions, log))
+    for got in (proof, want):
+        assert fri_layer_to_dict(got.first_layer) == \
+            jax_layer_to_dict(jproof.first_layer)
+        assert [fri_layer_to_dict(l) for l in got.inner_layers] == \
+            [jax_layer_to_dict(l) for l in jproof.inner_layers]
+
+
+def test_commit_fetches_every_root_with_the_state():
+    """`commit` brings the roots to the host in its one fetch: decommit
+    reads no root from the device afterwards."""
+    ours, tree, _, _ = _commit_inputs([6], 300)
+    prover = fri.FriProver.commit(Blake2sChannel(), fri.FriConfig(0, 1, 3),
+                                  ours, tree)
+    trees = [prover.first_layer.merkle_tree] + [
+        l.merkle_tree for l in prover.inner_layers]
+    assert all(t._root is not None for t in trees)
+    assert [t._root for t in trees] == [
+        t.digest(to_numpy_u32(t.layers[0][:, 0])) for t in trees]
+
+
+def test_commit_dispatch_leaves_the_channel_until_finish():
+    ours, tree, _, _ = _commit_inputs([6], 400)
+    ch = Blake2sChannel()
+    finish = fri.FriProver.commit_dispatch(ch, fri.FriConfig(0, 1, 3), ours,
+                                           tree)
+    assert ch == Blake2sChannel()
+    finish()
+    host_ch = Blake2sChannel()
+    fri.FriProver.commit_host(host_ch, fri.FriConfig(0, 1, 3), ours, tree)
+    assert ch == host_ch
+
+
+def test_commit_of_a_logging_channel_raises_as_jax_does():
+    """The reference's commit reads `channel_time`, which its
+    LoggingChannel lacks: both packages raise the same AttributeError."""
+    from tstwo_tpu.channel.logging import LoggingChannel as JaxLogging
+    from tstwo_tpu_torch.channel.logging import LoggingChannel
+
+    ours, tree, theirs, jtree = _commit_inputs([5], 500)
+    with pytest.raises(AttributeError, match="channel_time"):
+        fri.FriProver.commit(LoggingChannel(Blake2sChannel()),
+                             fri.FriConfig(0, 1, 3), ours, tree)
+    with pytest.raises(AttributeError, match="channel_time"):
+        jax_fri.FriProver.commit(JaxLogging(JaxChannel()),
+                                 jax_fri.FriConfig(0, 1, 3), theirs, jtree)
+
+
+def test_poseidon_flavour_commit_takes_the_host_transcript(monkeypatch):
+    """A flavour without `fused_fri_transcript` goes to `commit_host`, as
+    tstwo_tpu/fri.py:430 does (the Poseidon252 proof tests then run the
+    whole path)."""
+    from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
+
+    assert not Poseidon252MerkleOps.fused_fri_transcript
+    assert Blake2sMerkleOps.fused_fri_transcript
+    calls = []
+
+    def host(*args):
+        calls.append(args)
+        return "host"
+
+    monkeypatch.setattr(fri.FriProver, "commit_host", staticmethod(host))
+    ours, tree, _, _ = _commit_inputs([4], 600)
+    config = fri.FriConfig(0, 1, 3)
+    assert fri.FriProver.commit("ch", config, ours, tree,
+                                merkle_ops=Poseidon252MerkleOps) == "host"
+    assert calls == [("ch", config, ours, tree, Poseidon252MerkleOps, None)]
 
 
 def test_qm31_scalar_is_a_broadcastable_column():

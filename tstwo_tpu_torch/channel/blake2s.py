@@ -9,6 +9,8 @@ from __future__ import annotations
 import hashlib
 from typing import List, Sequence
 
+import numpy as np
+
 from ..fields import M31, P, QM31, SECURE_EXTENSION_DEGREE
 from . import ChannelTime
 
@@ -23,15 +25,45 @@ def _blake2s(data: bytes) -> bytes:
 
 class Blake2sChannel:
     """Digest-chained channel; draw = blake2s(digest || pad32(LE(n_sent)))
-    (reference channel/blake2.ts:211-224).  The transcript lives on the
-    host; Merkle roots are fetched from the device before they are mixed."""
+    (reference channel/blake2.ts:211-224).
+
+    The digest may live on the device for a while (`mix_root_device`): a
+    Merkle root there is mixed by the transcript kernel with no host round
+    trip, and the host bytes are fetched at the next host-side read of
+    `digest` (a mix, a draw, a clone).  Bit-exact either way."""
 
     BYTES_PER_HASH = BLAKE_BYTES_PER_HASH
 
     def __init__(self, digest: bytes = b"\x00" * 32,
                  channel_time: ChannelTime = None):
-        self.digest = digest
+        self._digest = digest
+        self._device_digest = None  # pending int32 [8] device words, or None
         self.channel_time = channel_time or ChannelTime()
+
+    @property
+    def digest(self) -> bytes:
+        if self._device_digest is not None:
+            from ..ops.blake2s import digest_words_to_bytes
+            from ..utils import to_numpy_u32
+
+            self._digest = digest_words_to_bytes(
+                to_numpy_u32(self._device_digest))
+            self._device_digest = None
+        return self._digest
+
+    @digest.setter
+    def digest(self, value: bytes) -> None:
+        self._digest = value
+        self._device_digest = None
+
+    def digest_words_device(self, device="cpu"):
+        """The digest as int32 [8] LE words on `device`: no fetch if it is
+        already on the device, else one asynchronous upload."""
+        if self._device_digest is not None:
+            return self._device_digest.to(device)
+        from .device import upload_words
+
+        return upload_words(np.frombuffer(self._digest, dtype="<u4"), device)
 
     def clone(self) -> "Blake2sChannel":
         return Blake2sChannel(
@@ -56,6 +88,17 @@ class Blake2sChannel:
     def mix_root(self, root: bytes) -> None:
         """MerkleChannel::mix_root (reference vcs/blake2_merkle.ts:28-32)."""
         self._update_digest(_blake2s(self.digest + root))
+
+    def mix_root_device(self, root_words) -> None:
+        """Mix a device-resident Merkle root (int32 [8] LE words) with no
+        host round trip: digest' = blake2s(digest || root) is one launch of
+        the transcript kernel on the root's device (the plain version on
+        the CPU); the host bytes are fetched at the next read."""
+        from . import device as dev
+
+        self._device_digest, _ = dev.mix_root(
+            self.digest_words_device(root_words.device), root_words)
+        self.channel_time.inc_challenges()
 
     def mix_u32s(self, data: Sequence[int]) -> None:
         payload = b"".join((x & 0xFFFFFFFF).to_bytes(4, "little") for x in data)

@@ -1,5 +1,6 @@
 // Batched Blake2s-256 of N equal-length messages, word-major, the Merkle
-// layers built from it, and the proof-of-work grind (blake2s_grind_kernel).
+// layers built from it, the proof-of-work grind (blake2s_grind_kernel) and
+// the Fiat-Shamir transcript step (blake2s_transcript_kernel).
 //
 // Replaces tstwo_tpu/ops/blake2s.py::_hash_words_major_pallas_impl
 // (kernel bodies _wm_kernel and _wm_kernel_fori) and, on the Merkle path,
@@ -9,10 +10,11 @@
 // What bounds it on the H100: integer operations.  A 64-byte block costs
 // 10 rounds x 8 G-mixes x 12 add/xor/rotate operations per message
 // against 64 bytes read, so the ALUs, not device memory, set the rate.
-// The compress spends no instruction on anything else: one thread per
-// message, the 16 state and 16 message words in registers, rotations as
-// one funnel shift each, and the message schedule (SIGMA) written out per
-// round so every message-word index is a compile-time constant.
+// The compress (csrc/blake2s.cuh) spends no instruction on anything else:
+// one thread per message, the 16 state and 16 message words in registers,
+// rotations as one funnel shift each, and the message schedule (SIGMA)
+// written out per round so every message-word index is a compile-time
+// constant.
 //
 // What the Merkle path lost was around the compress: a deinterleave of the
 // child layer, a concatenation with the columns, a zero padding, each a
@@ -39,77 +41,19 @@
 
 #include <cstdint>
 
+#include "blake2s.cuh"
 #include "segments.cuh"
 
 namespace {
 
 using tstwo::Cursor;
 using tstwo::Segments;
+using tstwo::compress;
 using tstwo::open_segment;
-
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int r) {
-  return __funnelshift_r(x, x, r);
-}
-
-#define B2S_G(a, b, c, d, x, y)         \
-  v[a] = v[a] + v[b] + (x);             \
-  v[d] = rotr(v[d] ^ v[a], 16);         \
-  v[c] = v[c] + v[d];                   \
-  v[b] = rotr(v[b] ^ v[c], 12);         \
-  v[a] = v[a] + v[b] + (y);             \
-  v[d] = rotr(v[d] ^ v[a], 8);          \
-  v[c] = v[c] + v[d];                   \
-  v[b] = rotr(v[b] ^ v[c], 7);
-
-#define B2S_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, s15) \
-  B2S_G(0, 4, 8, 12, m[s0], m[s1])                                                       \
-  B2S_G(1, 5, 9, 13, m[s2], m[s3])                                                       \
-  B2S_G(2, 6, 10, 14, m[s4], m[s5])                                                      \
-  B2S_G(3, 7, 11, 15, m[s6], m[s7])                                                      \
-  B2S_G(0, 5, 10, 15, m[s8], m[s9])                                                      \
-  B2S_G(1, 6, 11, 12, m[s10], m[s11])                                                    \
-  B2S_G(2, 7, 8, 13, m[s12], m[s13])                                                     \
-  B2S_G(3, 4, 9, 14, m[s14], m[s15])
-
-#define B2S_IV0 0x6A09E667u
-#define B2S_IV1 0xBB67AE85u
-#define B2S_IV2 0x3C6EF372u
-#define B2S_IV3 0xA54FF53Au
-#define B2S_IV4 0x510E527Fu
-#define B2S_IV5 0x9B05688Cu
-#define B2S_IV6 0x1F83D9ABu
-#define B2S_IV7 0x5BE0CD19u
-
-__device__ __forceinline__ void compress(uint32_t h[8], const uint32_t m[16],
-                                         uint64_t t, bool final) {
-  uint32_t v[16] = {h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7],
-                    B2S_IV0, B2S_IV1, B2S_IV2, B2S_IV3,
-                    B2S_IV4, B2S_IV5, B2S_IV6, B2S_IV7};
-  v[12] ^= static_cast<uint32_t>(t);
-  v[13] ^= static_cast<uint32_t>(t >> 32);
-  if (final) v[14] = ~v[14];
-  B2S_ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
-  B2S_ROUND(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3)
-  B2S_ROUND(11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4)
-  B2S_ROUND(7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8)
-  B2S_ROUND(9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13)
-  B2S_ROUND(2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9)
-  B2S_ROUND(12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11)
-  B2S_ROUND(13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10)
-  B2S_ROUND(6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5)
-  B2S_ROUND(10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0)
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] ^= v[i] ^ v[i + 8];
-}
 
 constexpr int kThreads = 128;
 constexpr int kTailThreads = 1024;
 constexpr int kMaxTailLog = 12;  // first tail level: at most 2^12 nodes
-
-// h0 = IV ^ parameter block (digest length 32, fanout 1, depth 1)
-#define B2S_H0                                                      \
-  {B2S_IV0 ^ 0x01010020u, B2S_IV1, B2S_IV2, B2S_IV3, B2S_IV4, B2S_IV5, \
-   B2S_IV6, B2S_IV7}
 
 __device__ __forceinline__ uint64_t block_counter(int b, int n_blocks,
                                                   long long byte_len) {
@@ -246,6 +190,37 @@ blake2s_grind_kernel(const GrindDigest digest, unsigned long long start,
   if (tz >= pow_bits) atomicMin(best, nonce);
 }
 
+// The Blake2s Fiat-Shamir transcript on the device: one launch is an
+// optional mix and then k >= 0 draws, so an FRI layer (mix its root, draw
+// alpha) is one launch and the host never reads the state in between.
+//
+// Replaces tstwo_tpu/channel/device.py::mix_root (:59), mix_u64, mix_felts
+// and draw_base_felts (:89), jitted programs with no pallas_call, whose
+// whole-hash rejection is a lax.while_loop; here it is a loop in the thread.
+//
+// The chain is sequential: each hash reads the digest the one before wrote.
+// So one block of one thread carries it, its state in registers, and what
+// bounds it is the latency of its compresses, each a dependent chain of
+// operations, not bytes or the card's rate: a launch's floor, like
+// merkle_tail's.
+//
+//   mix:  digest' = blake2s(digest || msg), msg_bytes >= 0 bytes, then
+//         n_sent = 0 (channel/blake2s.py mix_root / mix_u32s / mix_felts);
+//   draw: h = blake2s(digest || LE64(n_sent) || 0^24), n_sent += 1; if any
+//         word of h is >= 2P the whole hash is rejected and drawn again,
+//         else the 8 words, x >= P reduced to x - P, are the draw.
+// State: digest words [8] and n_sent as two LE words [2] (out may alias in);
+// csrc/blake2s.cuh::transcript_step is the body, which g++ also compiles.
+__global__ void __launch_bounds__(1)
+blake2s_transcript_kernel(const uint32_t* digest_in, const uint32_t* n_sent_in,
+                          const uint32_t* __restrict__ msg, long long msg_stride,
+                          long long msg_bytes, uint32_t* digest_out,
+                          uint32_t* n_sent_out, uint32_t* __restrict__ draws,
+                          int k) {
+  tstwo::transcript_step(digest_in, n_sent_in, msg, msg_stride, msg_bytes,
+                         digest_out, n_sent_out, draws, k);
+}
+
 }  // namespace
 
 // One layer of n messages.  prev: the child layer [8, 2n] (8-byte aligned)
@@ -318,5 +293,34 @@ extern "C" int tstwo_blake2s_grind(const uint32_t* digest, unsigned long long st
   for (int w = 0; w < 8; ++w) d.w[w] = digest[w];
   const unsigned grid = static_cast<unsigned>((count + kThreads - 1) / kThreads);
   blake2s_grind_kernel<<<grid, kThreads, 0, stream>>>(d, start, count, pow_bits, best);
+  return cudaGetLastError();
+}
+
+// One transcript step on the device: if msg_bytes >= 0, the mix of the
+// msg_bytes bytes at msg (device words msg_stride apart, as a Merkle root
+// lies in its layer; msg null only when msg_bytes is 0),
+// which resets n_sent; else n_sent is read from n_sent_in (device, two LE
+// words).  Then k >= 0 draws of 8 words each into draws (device, [k, 8]).
+// digest_in / digest_out: device [8] words; n_sent_out: device [2]; the
+// outputs may alias the inputs.  All words are int32 bit-views of u32.
+extern "C" int tstwo_blake2s_transcript(const int32_t* digest_in,
+                                        const int32_t* n_sent_in,
+                                        const int32_t* msg, long long msg_stride,
+                                        long long msg_bytes,
+                                        int32_t* digest_out, int32_t* n_sent_out,
+                                        int32_t* draws, int k, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (digest_in == nullptr || digest_out == nullptr || n_sent_out == nullptr ||
+      k < 0 || (k > 0 && draws == nullptr) ||
+      (msg_bytes < 0 && n_sent_in == nullptr) ||
+      (msg_bytes > 0 && msg == nullptr) || msg_bytes > (1LL << 36))
+    return cudaErrorInvalidValue;
+  blake2s_transcript_kernel<<<1, 1, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(digest_in),
+      reinterpret_cast<const uint32_t*>(n_sent_in),
+      reinterpret_cast<const uint32_t*>(msg), msg_stride, msg_bytes,
+      reinterpret_cast<uint32_t*>(digest_out),
+      reinterpret_cast<uint32_t*>(n_sent_out),
+      reinterpret_cast<uint32_t*>(draws), k);
   return cudaGetLastError();
 }

@@ -2,11 +2,14 @@
 
 Folding math runs on the columns' device (ops/fri_ops); Merkle commitments
 per layer use the batched hash of the Merkle flavour (`merkle_ops`, see
-vcs/ops.py; Blake2s unless given); the transcript and the query-dependent
-decommitment logic are host side.  Structure follows Rust stwo fri.rs (the reference TS fri.ts:485-979
-stubs the commitment side with mocks and alpha=1 placeholders -- those are
-deliberately NOT reproduced; channel-drawn alphas and real Merkle roots are
-used throughout).
+vcs/ops.py; Blake2s unless given).  `FriProver.commit` keeps the Blake2s
+transcript on the device (channel/device.py: one transcript launch a
+layer, one fetch at the end); `commit_host` keeps it on the host channel
+(the oracle, and the path of Poseidon252).  The query-dependent
+decommitment logic is host side.  Structure follows Rust stwo fri.rs (the
+reference TS fri.ts:485-979 stubs the commitment side with mocks and
+alpha=1 placeholders -- those are deliberately NOT reproduced;
+channel-drawn alphas and real Merkle roots are used throughout).
 
 With a mesh (parallel/), a layer whose log size `Mesh.shards` splits is
 folded and committed on each rank's slice (parallel/ops.py,
@@ -18,8 +21,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .channel import device as device_channel
 from .circle import CanonicCoset, CircleDomain, Coset
 from .fields import M31, QM31, SECURE_EXTENSION_DEGREE
 from .ops import fri_ops
@@ -28,8 +33,10 @@ from .poly.line import LineDomain, LineEvaluation, LinePoly
 from .poly.circle_poly import SecureEvaluation
 from .poly.twiddles import TwiddleTree
 from .queries import Queries, get_query_positions_by_log_size
+from .tracing import span
 from .utils import bit_reverse_index, to_numpy_u32
 from .vcs import MerkleProver, MerkleVerificationError, MerkleVerifier
+from .vcs.prover import _to_host
 from .vcs.ops import Blake2sMerkleOps
 
 FOLD_STEP = 1
@@ -388,28 +395,111 @@ class FriProver:
             raise ValueError("column sizes not decreasing")
 
     @staticmethod
+    def commit(channel, config: FriConfig, columns: List[SecureEvaluation],
+               twiddles: TwiddleTree, merkle_ops=Blake2sMerkleOps,
+               mesh=None) -> "FriProver":
+        """FRI commitment with the transcript on the device.
+
+        Every layer's Merkle root is mixed and its alpha drawn by one
+        launch of the transcript kernel (channel/device.py), and each fold
+        reads alpha where it lies: the commit is a sequence of launches
+        with no host read in it (`commit_dispatch`), then one fetch that
+        brings the transcript state, the last layer and every root to the
+        host (`finish`).  Bit-exact with `commit_host`.  A flavour whose
+        `fused_fri_transcript` is False (Poseidon252) takes `commit_host`.
+        Under a mesh every rank runs the same transcript on its replicated
+        roots."""
+        if not merkle_ops.fused_fri_transcript:
+            return FriProver.commit_host(channel, config, columns, twiddles,
+                                         merkle_ops, mesh)
+        return FriProver.commit_dispatch(channel, config, columns, twiddles,
+                                         merkle_ops, mesh)()
+
+    @staticmethod
+    def commit_dispatch(channel, config: FriConfig,
+                        columns: List[SecureEvaluation],
+                        twiddles: TwiddleTree, merkle_ops=Blake2sMerkleOps,
+                        mesh=None):
+        """The part of `commit` before its fetch: an asynchronous upload of
+        the channel state, then launches only (the folds' twiddles are
+        cached per device: a warm commit uploads none).  Returns
+        `finish()`, which makes the one fetch, syncs the host channel and
+        commits the last layer, returning the FriProver."""
+        FriProver._validate_columns(columns)
+        device = columns[0].values.device
+        with span("fri_fused_dispatch"):
+            state = list(device_channel.state_from_channel(channel, device))
+            trees = []
+
+            def step(tree):
+                state[0], state[1], alpha = \
+                    device_channel.mix_root_and_draw_felt(
+                        state[0], merkle_ops.device_root_words(tree))
+                trees.append(tree)
+                return alpha
+
+            first_layer = FriFirstLayerProver(columns, merkle_ops=merkle_ops,
+                                              mesh=mesh)
+            inner_layers, last_eval = FriProver._commit_inner_layers(
+                config, columns, twiddles, first_layer.merkle_tree, step,
+                merkle_ops, mesh)
+
+        def finish() -> "FriProver":
+            # one transfer: the transcript state, the last layer's values
+            # and every root (which decommit reads)
+            with span("fri_state_fetch"):
+                host = _to_host([*state, last_eval.values]
+                                + [merkle_ops.device_root_words(t)
+                                   for t in trees])
+            digest, n_sent, last_vals = host[:3]
+            for tree, words in zip(trees, host[3:]):
+                tree.cache_root(words)
+            device_channel.sync_host_channel(
+                channel, digest, int(n_sent[0]) | int(n_sent[1]) << 32,
+                n_mixes=len(trees))
+            with span("fri_last_layer"):
+                last_layer_poly = FriProver._commit_last_layer(
+                    channel, config, LineEvaluation(
+                        last_eval.domain, torch.from_numpy(
+                            last_vals.view(np.int32))))
+            return FriProver(config, first_layer, inner_layers,
+                             last_layer_poly)
+
+        return finish
+
+    @staticmethod
     def commit_host(channel, config: FriConfig,
                     columns: List[SecureEvaluation],
                     twiddles: TwiddleTree,
                     merkle_ops=Blake2sMerkleOps, mesh=None) -> "FriProver":
         """FRI commitment with the transcript on the host: each layer's
-        root is fetched and mixed before the next alpha is drawn (the JAX
-        package's fused device-transcript commit is bit-equal to this).
-        With `mesh`, the columns whose `mesh` is set are this rank's
-        slices, and the layers they fold into stay sharded while
+        root is fetched and mixed before the next alpha is drawn and
+        uploaded (the oracle of `commit`, and the production path of
+        Poseidon252).  With `mesh`, the columns whose `mesh` is set are this
+        rank's slices, and the layers they fold into stay sharded while
         `mesh.shards` splits them."""
         FriProver._validate_columns(columns)
+        device = columns[0].values.device
+
+        def step(tree):
+            channel.mix_root(tree.root())
+            return qm31_ops.scalar(channel.draw_felt(), device=device)
+
         first_layer = FriFirstLayerProver(columns, merkle_ops=merkle_ops,
                                           mesh=mesh)
-        channel.mix_root(first_layer.merkle_tree.root())
         inner_layers, last_eval = FriProver._commit_inner_layers(
-            channel, config, columns, twiddles, merkle_ops, mesh)
+            config, columns, twiddles, first_layer.merkle_tree, step,
+            merkle_ops, mesh)
         last_layer_poly = FriProver._commit_last_layer(channel, config, last_eval)
         return FriProver(config, first_layer, inner_layers, last_layer_poly)
 
     @staticmethod
-    def _commit_inner_layers(channel, config, columns, twiddles,
+    def _commit_inner_layers(config, columns, twiddles, first_tree, step,
                              merkle_ops=Blake2sMerkleOps, mesh=None):
+        """The fold chain.  `step(tree)` is the transcript's move at each
+        committed tree (the first layer's, then each inner layer's): mix
+        its root, draw the next alpha, and return alpha as an int32 [4]
+        tensor on the columns' device."""
         def folded_size(se):
             return se.domain.size() >> CIRCLE_TO_LINE_FOLD_STEP
 
@@ -419,20 +509,17 @@ class FriProver:
         layer_eval = _zero_layer(domain, device, mesh)
         col_iter = iter(columns)
         layers: List[FriInnerLayerProver] = []
-        folding_alpha = channel.draw_felt()
-        layer_eval = _fold_circle_into(
-            layer_eval, next(col_iter),
-            qm31_ops.scalar(folding_alpha, device=device), mesh)
+        alpha = step(first_tree)
+        layer_eval = _fold_circle_into(layer_eval, next(col_iter), alpha,
+                                       mesh)
         pending = next(col_iter, None)
         while len(layer_eval) > config.last_layer_domain_size():
             layer = FriInnerLayerProver(layer_eval, merkle_ops=merkle_ops,
                                         mesh=layer_eval.mesh)
-            channel.mix_root(layer.merkle_tree.root())
-            folding_alpha = channel.draw_felt()
-            alpha_dev = qm31_ops.scalar(folding_alpha, device=device)
-            layer_eval = _fold_line(layer_eval, twiddles, alpha_dev, mesh)
+            alpha = step(layer.merkle_tree)
+            layer_eval = _fold_line(layer_eval, twiddles, alpha, mesh)
             if pending is not None and folded_size(pending) == len(layer_eval):
-                layer_eval = _fold_circle_into(layer_eval, pending, alpha_dev,
+                layer_eval = _fold_circle_into(layer_eval, pending, alpha,
                                                mesh)
                 pending = next(col_iter, None)
             layers.append(layer)

@@ -11,7 +11,8 @@ Each kernel counts its launches in `LAUNCHES`: the wrappers in ops/fft.py
 (forward and inverse CFFT apart), ops/blake2s.py (a layer of messages
 without children as `blake2s`, a Merkle layer that reads its child pairs
 as `merkle_layer`, the one-block top of a tree as `merkle_tail`, a batch
-of proof-of-work nonces as `blake2s_grind`),
+of proof-of-work nonces as `blake2s_grind`, a Fiat-Shamir transcript step
+as `blake2s_transcript`),
 ops/fri_ops.py, ops/m31_kernels.py and ops/poseidon252.py (the Hades
 permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
 as `poseidon_merkle_layer`) add one per call of the C entry point, and
@@ -33,7 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cfft.cu", "cfft_forward.cu", "blake2s.cu", "deinterleave.cu",
            "m31_kernels.cu", "poseidon252.cu")
-HEADERS = ("m31.cuh", "cfft_pass.cuh", "segments.cuh", "felt252.cuh")
+HEADERS = ("m31.cuh", "cfft_pass.cuh", "segments.cuh", "felt252.cuh",
+           "blake2s.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -52,6 +54,11 @@ _SIGNATURES = {
     # digest (8 host words), start, count, pow_bits, best, stream
     "tstwo_blake2s_grind": (_VP, ctypes.c_ulonglong, ctypes.c_longlong,
                             ctypes.c_int, _VP, _VP),
+    # digest_in, n_sent_in, msg, msg_stride, msg_bytes, digest_out,
+    # n_sent_out, draws, k, stream
+    "tstwo_blake2s_transcript": (_VP, _VP, _VP, ctypes.c_longlong,
+                                 ctypes.c_longlong, _VP, _VP, _VP,
+                                 ctypes.c_int, _VP),
     # src, even, odd, pairs, stream
     "tstwo_deinterleave": (_VP, _VP, _VP, ctypes.c_longlong, _VP),
     # a, b, out, n, stream
@@ -79,7 +86,7 @@ _QUERIES = {
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
             "merkle_layer": 0, "merkle_tail": 0, "blake2s_grind": 0,
-            "deinterleave": 0,
+            "blake2s_transcript": 0, "deinterleave": 0,
             "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
             "poseidon_merkle_layer": 0}
 

@@ -7,12 +7,14 @@ hand-written kernels of csrc/blake2s.cu; a CPU tensor through the plain
 versions, which compute in int64 and mask to 32 bits after every add and
 shift (torch's >> on a negative int32 is arithmetic).
 
-Four entry points, each with its `_cuda` and `_plain` version:
+Five entry points, each with its `_cuda` and `_plain` version:
 `hash_words_major` (N messages from their words), `merkle_layer` (a Merkle
 layer from the child layer's pairs and the columns that join there, read
 where they lie: no deinterleave, concatenation or padding on the device),
 `merkle_tail` (every small layer of a tree down to the root in one
-launch) and `grind_batch` (the least proof-of-work nonce of a range).
+launch), `grind_batch` (the least proof-of-work nonce of a range) and
+`transcript` (a Fiat-Shamir step on a device-resident channel state: a
+mix, then draws; channel/device.py).
 
 Semantics: standard unkeyed blake2s-256, bit-exact with hashlib.blake2s.
 """
@@ -374,3 +376,107 @@ def grind_batch(digest_words, start: int, count: int, pow_bits: int,
     if kernels.is_cuda(device):
         return grind_batch_cuda(digest_words, start, count, pow_bits, device)
     return grind_batch_plain(digest_words, start, count, pow_bits, device)
+
+
+# The transcript state a step reads and writes: the digest as [8] words,
+# n_sent as [2] LE words (channel/device.py).  A drawn hash with a word at
+# or above 2P is rejected whole.
+_P = (1 << 31) - 1
+
+
+def _transcript_args(digest, n_sent, msg, msg_bytes, k):
+    if tuple(digest.shape) != (8,):
+        raise ValueError(f"digest: expected [8] words, got "
+                         f"{tuple(digest.shape)}")
+    if msg is None:
+        if n_sent is None or tuple(n_sent.shape) != (2,):
+            raise ValueError("n_sent: expected [2] words without a mix")
+        return None
+    if msg.ndim != 1:
+        raise ValueError("msg: expected [W] words")
+    if msg_bytes is None:
+        msg_bytes = 4 * msg.shape[0]
+    if not 0 <= msg_bytes <= 4 * msg.shape[0] or k < 0:
+        raise ValueError(f"msg_bytes {msg_bytes} of {msg.shape[0]} words, "
+                         f"k {k}")
+    return msg_bytes
+
+
+def transcript_plain(digest: torch.Tensor, n_sent: Optional[torch.Tensor]
+                     = None, msg: Optional[torch.Tensor] = None,
+                     msg_bytes: Optional[int] = None, k: int = 0):
+    """Plain PyTorch version of one transcript step, on any device (the
+    rejection reads each drawn hash on the host).  If `msg` (int32 [W]
+    words; `msg_bytes` of them, default all) is given, digest' =
+    blake2s(digest || msg) and n_sent' = 0; else n_sent (int32 [2] LE
+    words) is read.  Then k draws: h = blake2s(digest' || LE64(n_sent') ||
+    0^24), n_sent' += 1, again while a word of h is >= 2P; each draw's 8
+    words reduced below P.  Returns (digest' [8], n_sent' [2], draws
+    [k, 8]), int32 on the digest's device."""
+    msg_bytes = _transcript_args(digest, n_sent, msg, msg_bytes, k)
+    device = digest.device
+    if msg_bytes is not None:
+        words = msg[:-(-msg_bytes // 4)].to(torch.int64) & _MASK
+        if msg_bytes % 4:
+            words[-1] &= (1 << (8 * (msg_bytes % 4))) - 1
+        message = torch.cat([digest.to(torch.int64) & _MASK, words])
+        digest = hash_words_major_plain(message[:, None],
+                                        32 + msg_bytes)[:, 0]
+        count = 0
+    else:
+        lo, hi = (int(w) & _MASK for w in n_sent.tolist())
+        count = lo | hi << 32
+    d = digest.to(torch.int64) & _MASK
+    draws = []
+    for _ in range(k):
+        while True:
+            ctr = torch.tensor([count & _MASK, count >> 32, 0, 0, 0, 0, 0, 0],
+                               dtype=torch.int64, device=device)
+            h = hash_words_major_plain(torch.cat([d, ctr])[:, None],
+                                       64)[:, 0].to(torch.int64) & _MASK
+            count += 1
+            if not bool((h >= 2 * _P).any()):
+                break
+        draws.append(torch.where(h >= _P, h - _P, h))
+    out = torch.tensor([count & _MASK, count >> 32], dtype=torch.int64,
+                       device=device)
+    draws = (torch.stack(draws) if draws
+             else torch.zeros((0, 8), dtype=torch.int64, device=device))
+    return (as_int32_bits(d), as_int32_bits(out), as_int32_bits(draws))
+
+
+def transcript_cuda(digest: torch.Tensor, n_sent: Optional[torch.Tensor]
+                    = None, msg: Optional[torch.Tensor] = None,
+                    msg_bytes: Optional[int] = None, k: int = 0):
+    """One launch of csrc/blake2s.cu's transcript kernel on CUDA int32
+    tensors (`transcript_plain` says what it computes).  The results are
+    views of one new [10 + 8k] buffer; nothing is read back."""
+    kernels.check_cuda_tensor(digest, "digest")
+    msg_bytes = _transcript_args(digest, n_sent, msg, msg_bytes, k)
+    device = digest.device
+    if msg_bytes is None:
+        kernels.check_cuda_tensor(n_sent, "n_sent")
+        msg_ptr, stride, n_sent_ptr = None, 1, n_sent.data_ptr()
+        msg_bytes = -1
+    else:  # the words may lie a stride apart (a root in its layer)
+        kernels.check_cuda_tensor(msg, "msg", contiguous=False)
+        msg_ptr, stride, n_sent_ptr = msg.data_ptr(), msg.stride(0), None
+    for name, t in (("n_sent", n_sent), ("msg", msg)):
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} on {t.device}, digest on {device}")
+    out = torch.empty(10 + 8 * k, dtype=torch.int32, device=device)
+    ptr = out.data_ptr()
+    kernels.launch("blake2s_transcript", "blake2s_transcript", device,
+                   digest.data_ptr(), n_sent_ptr, msg_ptr, stride, msg_bytes,
+                   ptr, ptr + 32, ptr + 40 if k else None, k)
+    return out[:8], out[8:10], out[10:].view(k, 8)
+
+
+def transcript(digest: torch.Tensor, n_sent: Optional[torch.Tensor] = None,
+               msg: Optional[torch.Tensor] = None,
+               msg_bytes: Optional[int] = None, k: int = 0):
+    """One transcript step (`transcript_plain`): the kernel for a CUDA
+    digest, the plain version for a CPU one."""
+    if kernels.on_cuda(digest):
+        return transcript_cuda(digest, n_sent, msg, msg_bytes, k)
+    return transcript_plain(digest, n_sent, msg, msg_bytes, k)

@@ -101,12 +101,20 @@ def decompose(values: torch.Tensor):
 
 
 def domain_y_itwiddles(domain, device="cpu") -> torch.Tensor:
-    """1/y over the half coset in bit-reversed order (for circle->line fold)."""
+    """1/y over the half coset in bit-reversed order (for circle->line
+    fold), cached per device: only the first call for a domain uploads."""
+    return _domain_y_itwiddles_on(domain.half_coset.initial_index.value,
+                                  domain.half_coset.log_size,
+                                  torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def _domain_y_itwiddles_on(initial_index: int, log_size: int,
+                           device: torch.device) -> torch.Tensor:
     from ..utils import to_torch_u32
 
-    return to_torch_u32(_domain_y_itwiddles_np(
-        domain.half_coset.initial_index.value, domain.half_coset.log_size),
-        device)
+    return to_torch_u32(_domain_y_itwiddles_np(initial_index, log_size),
+                        device)
 
 
 @lru_cache(maxsize=None)

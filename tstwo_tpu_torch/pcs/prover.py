@@ -107,7 +107,12 @@ class CommitmentTreeProver:
                                                              logs)
             else:
                 self.commitment = merkle_ops.commit(stacks, device)
-        channel.mix_root(self.commitment.root())
+        root_words = getattr(merkle_ops, "device_root_words", None)
+        if root_words is not None and hasattr(channel, "mix_root_device"):
+            # mixed on the device: the commit never waits for the root
+            channel.mix_root_device(root_words(self.commitment))
+        else:
+            channel.mix_root(self.commitment.root())
 
     def decommit(self, queries: Dict[int, List[int]]):
         return self.commitment.decommit(
@@ -237,7 +242,7 @@ class CommitmentSchemeProver:
 
         # 3. FRI commitment phase.
         with span("fri_commit"):
-            fri_prover = FriProver.commit_host(
+            fri_prover = FriProver.commit(
                 channel, self.config.fri_config, quotients, self.twiddles,
                 merkle_ops=self.merkle_ops, mesh=self.mesh)
 

@@ -6,7 +6,10 @@ wall time of the block to `totals()[name]` and appends one record
 totals.  CUDA work is asynchronous, so an enabled span synchronises the
 CUDA device (once CUDA is in use) on entry and exit: its time holds the
 device work the block launched, at the cost of the host/device overlap
-the synchronisation removes.
+the synchronisation removes.  `enable(use_profiler=True)` also opens a
+`torch.profiler.record_function(name)` range for each span, so that the
+phases show in a torch.profiler trace (the counterpart of the JAX
+package's `use_jax_profiler`).
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ from typing import Dict, List
 _enabled = False
 _records: List[dict] = []
 _totals: Dict[str, float] = defaultdict(float)
+_use_profiler = False
 
 
-def enable() -> None:
-    global _enabled
+def enable(use_profiler: bool = False) -> None:
+    global _enabled, _use_profiler
     _enabled = True
+    _use_profiler = use_profiler
 
 
 def disable() -> None:
@@ -56,10 +61,16 @@ def span(name: str):
     if not _enabled:
         yield
         return
+    ctx = contextlib.nullcontext()
+    if _use_profiler:
+        import torch.profiler
+
+        ctx = torch.profiler.record_function(name)
     _sync()
     t0 = time.perf_counter()
     try:
-        yield
+        with ctx:
+            yield
     finally:
         _sync()
         dt = time.perf_counter() - t0

@@ -2,9 +2,11 @@
 absorbs its roots (reference vcs/ops.ts MerkleChannel + vcs/blake2s_merkle.ts).
 
 A flavour bundles what the PCS/FRI layers need to stay hash-agnostic:
-  commit(columns)                 device-batched Merkle tree prover
+  prover_cls().commit(columns)    device-batched Merkle tree prover
   hash_node(children, values)     host verifier-side node hash
   default_channel()               the matching Fiat-Shamir channel
+  fused_fri_transcript            whether FRI's commit keeps the transcript
+                                  on the device (channel/device.py)
 `commit` takes the device for the tree without columns; a tree with
 columns lives where they do.
 """
@@ -13,15 +15,26 @@ from __future__ import annotations
 
 class Blake2sMerkleOps:
     """Blake2s flavour (reference vcs/blake2s_merkle.ts).  Roots are 32-byte
-    digests."""
+    digests; supports the device-resident FRI transcript."""
 
     name = "blake2s"
+    fused_fri_transcript = True
+
+    @staticmethod
+    def prover_cls():
+        from .prover import MerkleProver
+
+        return MerkleProver
 
     @staticmethod
     def commit(columns, device=None):
-        from .prover import MerkleProver
+        return Blake2sMerkleOps.prover_cls().commit(columns, device)
 
-        return MerkleProver.commit(columns, device)
+    @staticmethod
+    def device_root_words(prover):
+        """The root as int32 [8] words where the tree lies, for mixing
+        into a device transcript with no host round trip."""
+        return prover.layers[0][:, 0]
 
     @staticmethod
     def hash_node(children, values):
@@ -43,12 +56,17 @@ class Poseidon252MerkleOps:
     the host channel."""
 
     name = "poseidon252"
+    fused_fri_transcript = False
+
+    @staticmethod
+    def prover_cls():
+        from .poseidon252_merkle import Poseidon252MerkleProver
+
+        return Poseidon252MerkleProver
 
     @staticmethod
     def commit(columns, device=None):
-        from .poseidon252_merkle import Poseidon252MerkleProver
-
-        return Poseidon252MerkleProver.commit(columns, device)
+        return Poseidon252MerkleOps.prover_cls().commit(columns, device)
 
     @staticmethod
     def hash_node(children, values):

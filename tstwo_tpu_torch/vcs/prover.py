@@ -171,8 +171,13 @@ class MerkleProver:
 
     def root(self):
         if self._root is None:
-            self._root = self.digest(to_numpy_u32(self.layers[0][:, 0]))
+            self.cache_root(to_numpy_u32(self.layers[0][:, 0]))
         return self._root
+
+    def cache_root(self, words) -> None:
+        """Keep the root from its 8 words, fetched by the caller with other
+        data in one transfer: `root()` then reads nothing."""
+        self._root = self.digest(words)
 
     def decommit(
         self,
