@@ -39,15 +39,21 @@ read just after:
     rows, which runs the Hades permutation kernel, against the host's
     hash (the Poseidon252 path must not launch the Blake2s transcript
     kernel either: its transcript stays on the host channel);
-  * the mesh prove (`prove_wide_fibonacci(..., mesh=)`, tstwo_tpu_torch/
+  * the mesh prove (`prove_wide_fibonacci(..., mesh=)` and
+    `prove_basic_air(..., flavor="poseidon252", mesh=)`, tstwo_tpu_torch/
     parallel): ranks started as processes of this script (`--mesh-rank`),
-    each under a timeout, every one on the one card -- one NCCL rank at
-    2^18 x 64, two gloo ranks at 2^16 x 32 and four gloo ranks at
-    2^18 x 64.  Every rank's proof must equal the single-device proof of
-    the same size byte for byte, every rank must launch the CFFT, Merkle
-    layer, Merkle tail, deinterleave and transcript kernels, and every
-    rank's Merkle leaves must cover n/D rows of each sharded column.  Its
-    walls are those of ranks sharing one card, not of a multi-GPU run.
+    each under a timeout, every one on the one card -- wide Fibonacci on
+    one NCCL rank at 2^18 x 64, two gloo ranks at 2^16 x 32 and four gloo
+    ranks at 2^18 x 64; the Poseidon252 basic AIR on one NCCL rank at
+    2^20, two gloo ranks at 2^16 and four gloo ranks at 2^20.  Every
+    rank's proof must equal the single-device proof of the same size and
+    flavour (byte for byte; field by field for Poseidon252), every
+    Blake2s rank must launch the CFFT, Merkle layer, Merkle tail,
+    deinterleave and transcript kernels, every Poseidon252 rank the
+    Poseidon layer kernel, both CFFTs and deinterleave and no Blake2s
+    kernel, and every rank's Merkle leaves must cover n/D rows of each
+    sharded column.  Its walls are those of ranks sharing one card, not
+    of a multi-GPU run.
 
 Each phase prints one line (name, seconds, result); any failure exits
 non-zero.  The second-to-last line is the kernel table as JSON, the last
@@ -734,11 +740,12 @@ def main() -> None:
     # 10-12. LogUp, 13-14. GKR, 15-18. the Poseidon252 flavour and sponge
     logup_phases(device)
     gkr_phases(device)
-    counts["poseidon_merkle_layer"] = poseidon_phases(device)[
-        "poseidon_merkle_layer"]
+    launches, poseidon_json = poseidon_phases(device)
+    counts["poseidon_merkle_layer"] = launches["poseidon_merkle_layer"]
     counts["hades_permutation"] = poseidon_sponge(device)["hades_permutation"]
 
     # 19. the mesh prove: ranks sharing the card
+    single_json.update({(log_n, None): j for log_n, j in poseidon_json.items()})
     mesh_phase(card, single_json)
 
     for row in rows:
@@ -1257,13 +1264,20 @@ def poseidon_proof_fields(proof) -> dict:
 
 
 POSEIDON_MID_LOG = 6  # the CPU-plain prove there takes about half a minute
+# what a Poseidon252 prove must launch, and the Blake2s family it must not
+POSEIDON_KERNELS = ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
+                    "deinterleave")
+BLAKE2S_KERNELS = ("blake2s", "merkle_layer", "merkle_tail", "blake2s_grind",
+                   "blake2s_transcript")
 
 
 def poseidon_phases(device) -> dict:
     """Phases 15-17: the basic AIR under the Poseidon252 flavour.  Golden
     2^4 proof, 2^6 CUDA == CPU, then two proves each at 2^16 and 2^20 rows
     with the launches counted; every proof verified on the host, whose
-    hash_node is Python-int Hades and shares nothing with the kernel."""
+    hash_node is Python-int Hades and shares nothing with the kernel.
+    Returns the launch counts and the 2^16 and 2^20 proofs' fields JSON
+    by log size (the mesh phase's references)."""
     import torch
 
     from tstwo_tpu_torch import kernels
@@ -1302,6 +1316,7 @@ def poseidon_phases(device) -> dict:
 
     prove(16, device)  # fills the host-side caches of that size
     kernels.reset_launches()
+    proofs = {}
     for log_n in (16, 20):
         walls = []
         for _ in range(2):
@@ -1316,12 +1331,9 @@ def poseidon_phases(device) -> dict:
               f"the host in {time.perf_counter() - t1:.3f} s; peak device "
               f"memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
-    return launch_counts(
-        "poseidon",
-        ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
-         "deinterleave"),
-        forbidden=("blake2s", "merkle_layer", "merkle_tail",
-                   "blake2s_grind", "blake2s_transcript"))
+        proofs[log_n] = fields_json(proof)
+    return launch_counts("poseidon", POSEIDON_KERNELS,
+                         forbidden=BLAKE2S_KERNELS), proofs
 
 
 def poseidon_sponge(device) -> dict:
@@ -1357,11 +1369,19 @@ def poseidon_sponge(device) -> dict:
     return launches
 
 
-# (backend, ranks, log_n, seq) of each group of the mesh phase; the phase's
-# single-device proofs of phase 6 are the references
-MESH_GROUPS = (("nccl", 1, 18, 64), ("gloo", 2, 16, 32), ("gloo", 4, 18, 64))
-MESH_KERNELS = ("cfft_forward", "cfft_inverse", "merkle_layer", "merkle_tail",
-                "deinterleave", "blake2s_transcript")
+# (flavour, backend, ranks, log_n, seq) of each group of the mesh phase:
+# wide Fibonacci against phase 6's single-device proofs, the Poseidon252
+# basic AIR (no seq) against phase 17's
+MESH_GROUPS = (("blake2s", "nccl", 1, 18, 64), ("blake2s", "gloo", 2, 16, 32),
+               ("blake2s", "gloo", 4, 18, 64),
+               ("poseidon252", "nccl", 1, 20, None),
+               ("poseidon252", "gloo", 2, 16, None),
+               ("poseidon252", "gloo", 4, 20, None))
+# per flavour: the kernels every rank must launch, and those it must not
+MESH_KERNELS = {
+    "blake2s": (("cfft_forward", "cfft_inverse", "merkle_layer",
+                 "merkle_tail", "deinterleave", "blake2s_transcript"), ()),
+    "poseidon252": (POSEIDON_KERNELS, BLAKE2S_KERNELS)}
 MESH_RANK_TIMEOUT_S = 300
 
 
@@ -1370,21 +1390,32 @@ def mesh_rank(argv) -> None:
     joins the group, proves twice (the first fills the per-process caches:
     the kernel library, twiddles, sharded-FFT plans) with the launch counts,
     leaf rows and collective traffic reset just before the second, writes
-    that proof's JSON and prints its report as one JSON line."""
+    that proof's JSON (its fields JSON for Poseidon252) and prints its
+    report as one JSON line.  `--flavor poseidon252` proves the basic AIR
+    of 2^log_n rows, the default wide Fibonacci 2^log_n x seq."""
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser()
-    for name in ("--mesh-rank", "--size", "--log-n", "--seq"):
+    for name in ("--mesh-rank", "--size", "--log-n"):
         ap.add_argument(name, type=int, required=True)
+    ap.add_argument("--seq", type=int)
     for name in ("--backend", "--store", "--out"):
         ap.add_argument(name, required=True)
+    ap.add_argument("--flavor", default="blake2s",
+                    choices=("blake2s", "poseidon252"))
     a = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.examples.basic_air import prove_basic_air
     from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
     from tstwo_tpu_torch.parallel import init_distributed, make_mesh
+
+    def prove():
+        if a.flavor == "poseidon252":
+            return prove_basic_air(a.log_n, flavor="poseidon252", mesh=mesh)
+        return prove_wide_fibonacci(a.log_n, a.seq, seed=0, mesh=mesh)
 
     init_distributed(a.backend, "file://" + a.store, a.mesh_rank, a.size)
     mesh = make_mesh()
@@ -1394,10 +1425,12 @@ def mesh_rank(argv) -> None:
         mesh.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof, _, _ = prove_wide_fibonacci(a.log_n, a.seq, seed=0, mesh=mesh)
+        proof, _, _ = prove()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    Path(a.out).write_text(proof_json(proof))
+    Path(a.out).write_text(
+        json.dumps(poseidon_proof_fields(proof), sort_keys=True)
+        if a.flavor == "poseidon252" else proof_json(proof))
     print(json.dumps({"rank": mesh.rank, "device": str(mesh.device),
                       "walls": walls, "launches": dict(kernels.LAUNCHES),
                       "leaf_rows": mesh.leaf_rows,
@@ -1408,16 +1441,19 @@ def mesh_rank(argv) -> None:
 def mesh_phase(card: str, single_json: dict) -> None:
     """Phase 19: each group of MESH_GROUPS as processes of this script on
     the one card (the kernels are built: the ranks load the library),
-    against the single-device proofs of phase 6."""
+    against the single-device proofs of phases 6 and 17, keyed by
+    (log_n, seq)."""
     import tempfile
 
-    for backend, size, log_n, seq in MESH_GROUPS:
+    for flavor, backend, size, log_n, seq in MESH_GROUPS:
+        required, forbidden = MESH_KERNELS[flavor]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             procs = [subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"),
                  "--mesh-rank", str(r), "--size", str(size),
-                 "--log-n", str(log_n), "--seq", str(seq),
+                 "--log-n", str(log_n), "--flavor", flavor,
+                 *(("--seq", str(seq)) if seq else ()),
                  "--backend", backend, "--store", f"{tmp}/store",
                  "--out", f"{tmp}/proof{r}.json"],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -1443,32 +1479,39 @@ def mesh_phase(card: str, single_json: dict) -> None:
                        for out, _ in outs]
             proofs = [Path(f"{tmp}/proof{r}.json").read_text()
                       for r in range(size)]
-        name = f"mesh {backend} x{size} {log_n}x{seq}"
+        name = (f"mesh {backend} x{size} "
+                + (f"{log_n}x{seq}" if seq else f"poseidon252 {log_n}"))
         if any(p != single_json[(log_n, seq)] for p in proofs):
             fail(f"{name}: a rank's proof differs from the single-device "
                  "proof")
         for rep in reports:
-            for kernel in MESH_KERNELS:
+            for kernel in required:
                 if rep["launches"][kernel] <= 0:
                     fail(f"{name}: rank {rep['rank']} did not launch "
                          f"{kernel}")
+            for kernel in forbidden:
+                if rep["launches"][kernel] != 0:
+                    fail(f"{name}: rank {rep['rank']} launched {kernel}")
             if not rep["leaf_rows"] or any(
                     local != (1 << log) // size
                     for log, _, local in rep["leaf_rows"]):
                 fail(f"{name}: rank {rep['rank']} leaf rows "
                      f"{rep['leaf_rows']} are not n/{size} of each column")
+            sent = {kind: t["bytes"] for kind, t in rep["traffic"].items()}
             print(f"  {name} rank {rep['rank']} on {rep['device']}: walls "
                   f"{', '.join(f'{w:.3f}' for w in rep['walls'])} s; "
                   f"launches {json.dumps(rep['launches'], sort_keys=True)};"
-                  f" traffic {json.dumps(rep['traffic'], sort_keys=True)}",
+                  f" bytes sent {json.dumps(sent, sort_keys=True)}; "
+                  f"traffic {json.dumps(rep['traffic'], sort_keys=True)}",
                   flush=True)
         warm = max(rep["walls"][1] for rep in reports)
         phase(name, time.perf_counter() - t0,
               f"{size} rank(s) sharing one card ({card}), not scale-out: "
               f"every rank's proof == the single-device proof; warm wall "
               f"{warm:.3f} s (slowest rank); kernels "
-              f"{', '.join(MESH_KERNELS)} launched on every rank; leaf rows "
-              f"n/{size} of every sharded column")
+              f"{', '.join(required)} launched on every rank"
+              + (f", none of {', '.join(forbidden)}" if forbidden else "")
+              + f"; leaf rows n/{size} of every sharded column")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ Mirrors tests/test_serialize.py::test_mid_prove_checkpoint_resume in the
 port (save after the commit phase, load, finish: the same bytes as an
 uninterrupted prove), then crosses packages: a checkpoint the JAX package
 saved resumes in the port to the JAX proof's bytes, and one the port saved
-resumes in the JAX package.  Last, the two refusals of a load.
+resumes in the JAX package.  Last, the two refusals of a load, and the
+fault both packages share: neither saves a Poseidon252 prove.
 """
 import json
 
@@ -166,3 +167,30 @@ def test_load_refuses_a_mesh_checkpoint(tmp_path, port):
     path = _rewritten(tmp_path, port, mesh=True)
     with pytest.raises(ValueError, match="mesh-sharded"):
         load_prover_checkpoint(path, port[2], device="cpu")
+
+
+def test_saving_a_poseidon252_prove_fails_alike_in_both_packages(tmp_path):
+    """A matched fault of the reference: `channel_state_to_dict` writes the
+    channel's digest with `.hex()`, which a Poseidon252 channel's
+    FieldElement252 digest lacks, so neither package saves a Poseidon252
+    prove.  Both raise the same error and write no file."""
+    from tstwo_tpu.channel.poseidon import Poseidon252Channel as JaxPosChannel
+    from tstwo_tpu.vcs.ops import Poseidon252MerkleOps as JaxPosOps
+    from tstwo_tpu_torch.channel.poseidon import Poseidon252Channel
+    from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
+
+    errors = []
+    for scheme, channel, save in (
+            (JaxScheme(JaxPcsConfig(), None, merkle_ops=JaxPosOps),
+             JaxPosChannel(), jax_save),
+            (CommitmentSchemeProver(PcsConfig(), None, device="cpu",
+                                    merkle_ops=Poseidon252MerkleOps),
+             Poseidon252Channel(), save_prover_checkpoint)):
+        channel.mix_u64(4)
+        path = tmp_path / f"{len(errors)}.npz"
+        with pytest.raises(AttributeError) as err:
+            save(str(path), scheme, channel)
+        assert not path.exists()
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert "'FieldElement252' object has no attribute 'hex'" in errors[0]

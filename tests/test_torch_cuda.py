@@ -518,6 +518,33 @@ def test_poseidon_layer_kernel_takes_a_strided_child_layer(device):
            pos.merkle_layer_plain(prev.contiguous(), []))
 
 
+@pytest.mark.parametrize("size", [2, 4, 8])
+def test_poseidon_tree_top_takes_the_gathered_subroot_view(device, size):
+    """The top of a sharded Poseidon252 tree: the D subroots as an
+    all_gather returns them ([D, 8, 1]), seen transposed ([8, D], not
+    contiguous), with a whole column joining at the root, through the
+    kernel and through the plain version."""
+    from tstwo_tpu_torch.parallel.merkle import _commit_top
+    from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
+
+    rng = np.random.default_rng(size)
+    view = _rand_felts(rng, size, device).t().contiguous()[:, :, None][
+        :, :, 0].t()
+    assert not view.is_contiguous()
+    cols, logs = [_rand(rng, (3, 1), device)], [0]
+    kernels.reset_launches()
+    top = _commit_top(Poseidon252MerkleOps, view, cols, logs, device)
+    k = size.bit_length() - 1
+    assert kernels.LAUNCHES["poseidon_merkle_layer"] == k
+    prev, want = view.cpu().contiguous(), []
+    for log in range(k - 1, -1, -1):
+        prev = pos.merkle_layer_plain(
+            prev, [c.cpu() for c in cols] if log == 0 else [])
+        want.append(prev)
+    for got, ref in zip(top, want[::-1]):
+        _exact(got, ref)
+
+
 def test_poseidon_wrappers_refuse_what_the_kernels_do_not_take(device):
     x = _rand(np.random.default_rng(5), (3, 8), device)
     with pytest.raises(ValueError, match="expected \\[8\\]"):

@@ -16,13 +16,21 @@ inputs:
   * `sharded_fold_line`, `sharded_accumulate_quotients`, the sharded leaf
     layer and the full sharded Merkle commit and decommit (columns above,
     at and under the sharding threshold) against the JAX functions;
+  * the sharded Poseidon252 tree (the same columns) against the port's
+    single-device Poseidon252 tree, which tests/test_torch_poseidon_merkle.py
+    holds against JAX, and its top layers from a non-contiguous view of
+    the gathered subroots;
   * `prove_wide_fibonacci(8, 8)` at D = 1, 2, 4 and on a 2 x 2 mesh,
     against the committed JAX proof, and `prove_basic_air(6)` at D = 4
     against the JAX single-device proof: every rank's proof is the same,
     the port's verifier accepts it, and each rank's Merkle leaves covered
     n/D rows of every sharded column;
+  * `prove_basic_air(4, flavor="poseidon252")` at D = 1, 2, 4 and on a
+    2 x 2 mesh, field by field against the committed JAX proof, which is
+    also the JAX package's own mesh proof on 4 virtual devices;
   * a JAX mesh checkpoint (8 virtual devices) loaded into the port at D = 2
-    finishes to the JAX proof's bytes.
+    finishes to the JAX proof's bytes, and a Poseidon252 checkpoint loaded
+    under a mesh rebuilds a Poseidon252 tree.
 """
 import json
 import os
@@ -42,6 +50,9 @@ MERKLE_LOGS = (10, 10, 8, 3, 1)
 MERKLE_QUERIES = {10: [0, 5, 511, 512, 1023], 8: [3, 200], 3: [1, 6],
                   1: [0]}
 BASIC_AIR_LOG = 6
+POSEIDON_LOG = 4  # a CPU Poseidon252 prove there takes ~25 s a rank
+POSEIDON_FIXTURE = os.path.join(REPO, "tests", "data",
+                                "torch_port_basic_air_poseidon_log4.json")
 
 
 def fft_logs(size):
@@ -176,6 +187,34 @@ _RANK = textwrap.dedent("""
             torch.tensor([rank + 7], dtype=torch.int32), src=size - 1).item()
         out["traffic"] = json.loads(json.dumps(mesh.traffic))
 
+    if "poseidon_tree" in tasks:
+        from tstwo_tpu_torch.parallel.merkle import ShardedMerkleProver
+        from tstwo_tpu_torch.parallel.ops import shard_points
+        from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
+
+        cols = [to_torch_u32(c) for c in T.merkle_columns()]
+        cols = [shard_points(mesh, c) if mesh.shards(log) else c
+                for c, log in zip(cols, T.MERKLE_LOGS)]
+        tree = ShardedMerkleProver.commit(mesh, cols, T.MERKLE_LOGS,
+                                          Poseidon252MerkleOps)
+        queried, dec = tree.decommit(T.MERKLE_QUERIES, cols, T.MERKLE_LOGS)
+        out["poseidon_merkle"] = T.poseidon_tree_result(
+            tree.root(), tree.sharded, queried, dec)
+
+    if "poseidon" in tasks:
+        import pickle
+
+        from tstwo_tpu_torch.examples.basic_air import prove_basic_air
+
+        mesh.reset_counts()
+        proof, _, _ = prove_basic_air(T.POSEIDON_LOG, flavor="poseidon252",
+                                      mesh=mesh)
+        # felt digests have no proof_to_dict: the test encodes the proof
+        out["poseidon_pickle"] = f"{out_dir}/poseidon{rank}.pkl"
+        with open(out["poseidon_pickle"], "wb") as f:
+            pickle.dump(proof, f)
+        out["poseidon_leaf_rows"] = mesh.leaf_rows
+
     def proof_json(proof):
         return json.dumps(proof_to_dict(proof), sort_keys=True)
 
@@ -297,10 +336,11 @@ def finish_group(group):
 
 
 GROUPS = {  # name -> (ranks, tasks, mesh shape)
-    "d1": (1, ("fft", "ops", "wide_fib"), "1d"),
-    "d2": (2, ("fft", "ops", "wide_fib"), "1d"),
-    "d4": (4, ("fft", "ops", "wide_fib", "basic_air"), "1d"),
-    "2x2": (4, ("wide_fib",), "2x2"),
+    "d1": (1, ("fft", "ops", "wide_fib", "poseidon_tree", "poseidon"), "1d"),
+    "d2": (2, ("fft", "ops", "wide_fib", "poseidon_tree", "poseidon"), "1d"),
+    "d4": (4, ("fft", "ops", "wide_fib", "basic_air", "poseidon_tree",
+               "poseidon"), "1d"),
+    "2x2": (4, ("wide_fib", "poseidon"), "2x2"),
 }
 
 
@@ -460,6 +500,66 @@ def test_sharded_merkle_commit_and_decommit_match_jax(groups, size):
         assert res["merkle"] == want
 
 
+def poseidon_tree_result(root, sharded, queried, dec):
+    """A Poseidon252 tree's root and decommitment as JSON values."""
+    return {"root": f"{root.value:064x}", "sharded": sharded,
+            "queried": [v.value for v in queried],
+            "hash_witness": [f"{h.value:064x}" for h in dec.hash_witness],
+            "column_witness": [v.value for v in dec.column_witness]}
+
+
+@pytest.fixture(scope="module")
+def single_poseidon_tree():
+    """The port's single-device Poseidon252 tree over `merkle_columns`."""
+    from tstwo_tpu_torch.utils import to_torch_u32
+    from tstwo_tpu_torch.vcs.poseidon252_merkle import \
+        Poseidon252MerkleProver
+
+    cols = [to_torch_u32(c) for c in merkle_columns()]
+    tree = Poseidon252MerkleProver.commit(cols)
+    return tree, cols
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_sharded_poseidon_tree_equals_the_single_device_tree(
+        groups, single_poseidon_tree, size):
+    tree, cols = single_poseidon_tree
+    queried, dec = tree.decommit(MERKLE_QUERIES, cols)
+    want = poseidon_tree_result(tree.root(), True, queried, dec)
+    for _, res in groups[_ranks_of(size)]:
+        assert res["poseidon_merkle"] == want
+
+
+@pytest.mark.parametrize("flavor", ["blake2s", "poseidon252"])
+@pytest.mark.parametrize("size", [2, 4])
+def test_tree_top_takes_a_noncontiguous_subroot_view(single_poseidon_tree,
+                                                     flavor, size):
+    """The top k layers hashed from the gathered subroots as the sharded
+    commit sees them ([D, 8, 1] -> a transposed [8, D] view) equal the
+    single-device tree's."""
+    import torch
+
+    from tstwo_tpu_torch.parallel.merkle import _commit_top
+    from tstwo_tpu_torch.vcs.ops import MERKLE_OPS
+    from tstwo_tpu_torch.vcs.prover import MerkleProver
+
+    if flavor == "poseidon252":
+        tree, cols = single_poseidon_tree
+    else:
+        from tstwo_tpu_torch.utils import to_torch_u32
+
+        cols = [to_torch_u32(c) for c in merkle_columns()]
+        tree = MerkleProver.commit(cols)
+    k = size.bit_length() - 1
+    gathered = tree.layers[k].t().contiguous()[:, :, None]  # [D, 8, 1]
+    view = gathered[:, :, 0].t()
+    assert not view.is_contiguous()
+    top = _commit_top(MERKLE_OPS[flavor], view, cols, MERKLE_LOGS, "cpu")
+    assert len(top) == k
+    for got, want in zip(top, tree.layers[:k]):
+        assert torch.equal(got, want)
+
+
 # -- the mesh prove -----------------------------------------------------------
 
 def _check_proofs(ranks, key, want_json, size, verify):
@@ -518,18 +618,47 @@ def test_mesh_prove_basic_air_equals_the_jax_single_device_proof(
                                              BASIC_AIR_LOG))
 
 
-def test_mesh_prove_refuses_the_poseidon252_flavour():
-    import torch
+@pytest.mark.parametrize("group", ["d1", "d2", "d4", "2x2"])
+def test_mesh_prove_poseidon252_equals_the_jax_proof(groups, group):
+    """Every rank's Poseidon252 proof is the committed JAX proof field by
+    field, and the port's verifier accepts it."""
+    import pickle
 
+    from test_torch_poseidon_prove import proof_fields
+    from tstwo_tpu_torch.constraint_framework import (FrameworkComponent,
+                                                      TraceLocationAllocator)
+    from tstwo_tpu_torch.examples.basic_air import TestEval, verify_basic_air
+    from tstwo_tpu_torch.fields import QM31
     from tstwo_tpu_torch.pcs import PcsConfig
-    from tstwo_tpu_torch.pcs.prover import CommitmentSchemeProver
-    from tstwo_tpu_torch.parallel.mesh import Mesh
-    from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
 
-    mesh = Mesh(None, 0, 2, (1, 2), torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError):
-        CommitmentSchemeProver(PcsConfig(), None, mesh=mesh,
-                               merkle_ops=Poseidon252MerkleOps)
+    size = GROUPS[group][0]
+    with open(POSEIDON_FIXTURE) as f:
+        want = json.loads(f.read())
+    comp = FrameworkComponent(TraceLocationAllocator(),
+                              TestEval(POSEIDON_LOG), QM31.zero())
+    for _, res in groups[group]:
+        with open(res["poseidon_pickle"], "rb") as f:
+            proof = pickle.load(f)
+        assert proof_fields(proof) == want
+        verify_basic_air(proof, comp, PcsConfig(), POSEIDON_LOG,
+                         flavor="poseidon252")
+        rows = res["poseidon_leaf_rows"]
+        assert rows, "no sharded commit"
+        for log, _, local in rows:
+            assert local == (1 << log) // size, (log, local)
+
+
+def test_jax_mesh_prove_poseidon252_is_the_fixture():
+    """The JAX package's own mesh prove (4 of the conftest's virtual
+    devices) gives the proof the port's ranks are held to."""
+    from test_torch_poseidon_prove import proof_fields
+    from tstwo_tpu.examples.basic_air import prove_basic_air
+    from tstwo_tpu.parallel.mesh import make_mesh
+
+    proof, _, _ = prove_basic_air(POSEIDON_LOG, flavor="poseidon252",
+                                  mesh=make_mesh(4))
+    with open(POSEIDON_FIXTURE) as f:
+        assert proof_fields(proof) == json.loads(f.read())
 
 
 def test_mesh_predicates_follow_the_jax_threshold():
@@ -605,6 +734,70 @@ def test_jax_mesh_checkpoint_finishes_in_the_port_at_two_ranks(
     for arrays, res in ranks:
         assert res["to_host_sharded"]
         np.testing.assert_array_equal(arrays["to_host"], ref["t1_e0"])
+
+
+@pytest.fixture(scope="module")
+def poseidon_checkpoint(tmp_path_factory):
+    """A committed Poseidon252 scheme of the basic AIR at log 3, saved
+    with a Blake2s channel state (neither package saves a Poseidon252
+    channel: tests/test_torch_checkpoint.py); (path, scheme)."""
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.channel.poseidon import Poseidon252Channel
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.examples.basic_air import generate_trace
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.pcs.prover import CommitmentSchemeProver
+    from tstwo_tpu_torch.poly.circle_poly import CircleEvaluation
+    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
+    from tstwo_tpu_torch.serialize import save_prover_checkpoint
+    from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
+
+    log = 3
+    twiddles = precompute_twiddles(
+        CanonicCoset.new(log + 2).circle_domain().half_coset)
+    scheme = CommitmentSchemeProver(PcsConfig(), twiddles, device="cpu",
+                                    merkle_ops=Poseidon252MerkleOps)
+    channel = Poseidon252Channel()
+    for evals in ([], [CircleEvaluation(CanonicCoset.new(log).circle_domain(),
+                                        c)
+                       for c in generate_trace(log, device="cpu")]):
+        tb = scheme.tree_builder()
+        tb.extend_evals(evals)
+        tb.commit(channel)
+    path = str(tmp_path_factory.mktemp("poseidon_ckpt") / "ckpt.npz")
+    save_prover_checkpoint(path, scheme, Blake2sChannel())
+    return path, scheme, twiddles
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_poseidon252_checkpoint_loads_a_poseidon252_tree_under_a_mesh(
+        poseidon_checkpoint, rank):
+    """Rank `rank` of two rebuilds the sharded tree of the checkpoint's
+    flavour: its root is the saved tree's felt, and its layers of log 1
+    or more are the rank's slices of the saved layers (no collective)."""
+    import torch
+
+    from tstwo_tpu_torch.parallel.merkle import ShardedMerkleProver
+    from tstwo_tpu_torch.parallel.mesh import Mesh
+    from tstwo_tpu_torch.serialize import load_prover_checkpoint
+    from tstwo_tpu_torch.vcs.ops import Poseidon252MerkleOps
+
+    path, saved, twiddles = poseidon_checkpoint
+    mesh = Mesh(None, rank, 2, (1, 2), torch.device("cpu"), "gloo")
+    scheme, _ = load_prover_checkpoint(path, twiddles, mesh=mesh)
+    assert scheme.merkle_ops is Poseidon252MerkleOps
+    for got, want in zip(scheme.trees, saved.trees):
+        tree = got.commitment
+        assert isinstance(tree, ShardedMerkleProver)
+        assert tree.merkle_ops is Poseidon252MerkleOps
+        assert tree.root() == want.commitment.root()
+        for log, (layer, whole) in enumerate(zip(tree.layers,
+                                                 want.commitment.layers)):
+            if tree.sharded and log >= mesh.log_size:
+                start, stop = mesh.local_range(whole.shape[1])
+                whole = whole[:, start:stop]
+            assert torch.equal(layer, whole)
+    assert scheme.trees[1].commitment.sharded
 
 
 def test_mesh_refuses_what_it_cannot_run():

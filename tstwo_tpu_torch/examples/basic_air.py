@@ -69,9 +69,10 @@ def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
     `device="cpu"` runs the plain PyTorch versions on the CPU.  `flavor`
     selects the MerkleChannel: "blake2s" or "poseidon252" (Hades Merkle
     trees, felt252 roots, the Poseidon252 channel).  With `mesh`
-    (parallel/, Blake2s only), the prove runs point-sharded over its ranks
-    on the mesh's device, and every rank returns the same proof,
-    byte-identical to the single-device one."""
+    (parallel/, either flavour), the prove runs point-sharded over its
+    ranks on the mesh's device, each rank hashing its Merkle subtrees with
+    the flavour's kernels, and every rank returns the same proof as the
+    single-device one, field by field."""
     from ..tracing import span
     from ..vcs.ops import MERKLE_OPS
 

@@ -260,11 +260,13 @@ def compute_decommitment_positions_and_rebuild_evals(
 def _commit_layer(values: Sequence[torch.Tensor], logs: Sequence[int],
                   merkle_ops, mesh):
     """One FRI layer's tree: each [4, n] coordinate stack is one 2-D
-    entry; with a mesh, the sharded tree of parallel/merkle.py."""
+    entry; with a mesh, the sharded tree of parallel/merkle.py, of the
+    same flavour."""
     if mesh is not None:
         from .parallel.merkle import ShardedMerkleProver
 
-        return ShardedMerkleProver.commit(mesh, list(values), list(logs))
+        return ShardedMerkleProver.commit(mesh, list(values), list(logs),
+                                          merkle_ops)
     return merkle_ops.commit(list(values))
 
 

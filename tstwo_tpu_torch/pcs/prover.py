@@ -103,8 +103,8 @@ class CommitmentTreeProver:
             # one [C, n] entry per size: the tree hashes same-size columns
             # in index order, which is the order of each stack's rows
             if mesh is not None:
-                self.commitment = ShardedMerkleProver.commit(mesh, stacks,
-                                                             logs)
+                self.commitment = ShardedMerkleProver.commit(
+                    mesh, stacks, logs, merkle_ops)
             else:
                 self.commitment = merkle_ops.commit(stacks, device)
         root_words = getattr(merkle_ops, "device_root_words", None)
@@ -164,16 +164,12 @@ class CommitmentSchemeProver:
     """Commits trees and opens them.  On one device, `device` holds every
     column the scheme commits; with `mesh` (parallel/) the mesh decides
     the device, and the whole prove runs point-sharded over its ranks with
-    the same proof bytes (Blake2s flavour only).  `merkle_ops` is the
-    Merkle flavour (vcs/ops.py)."""
+    the same proof as on one device, in either flavour.  `merkle_ops` is
+    the Merkle flavour (vcs/ops.py)."""
 
     def __init__(self, config: PcsConfig, twiddles: TwiddleTree,
                  device="cpu", merkle_ops=Blake2sMerkleOps, mesh=None):
         if mesh is not None:
-            if merkle_ops is not Blake2sMerkleOps:
-                raise NotImplementedError(
-                    f"a mesh prove shards Blake2s trees only, not "
-                    f"{merkle_ops.name}")
             device = mesh.device
         self.config = config
         self.twiddles = twiddles

@@ -228,8 +228,6 @@ def load_prover_checkpoint(path: str, twiddles, device="cpu", mesh=None):
     from .poly.circle_poly import CircleEvaluation, CirclePoly
     from .utils import to_torch_u32
     from .vcs.ops import MERKLE_OPS
-    from .vcs.poseidon252_merkle import Poseidon252MerkleProver
-    from .vcs.prover import MerkleProver
 
     data = np.load(path)
     meta = json.loads(str(data["__meta__"]))
@@ -244,10 +242,9 @@ def load_prover_checkpoint(path: str, twiddles, device="cpu", mesh=None):
         raise ValueError(
             "checkpoint was saved from a mesh-sharded prove; pass a "
             "parallel.Mesh to load_prover_checkpoint(mesh=...)")
-    prover_cls = {"blake2s": MerkleProver,
-                  "poseidon252": Poseidon252MerkleProver}[flavor]
+    merkle_ops = MERKLE_OPS[flavor]
     scheme = CommitmentSchemeProver(cfg, twiddles, device=device,
-                                    merkle_ops=MERKLE_OPS[flavor], mesh=mesh)
+                                    merkle_ops=merkle_ops, mesh=mesh)
 
     def tensor(name, sliced=False):
         """The array `name` on the scheme's device, or this rank's slice
@@ -271,7 +268,7 @@ def load_prover_checkpoint(path: str, twiddles, device="cpu", mesh=None):
             for ei, log in enumerate(logs)]
         n_layers = tmeta["n_layers"]
         if mesh is None:
-            tree.commitment = prover_cls(
+            tree.commitment = merkle_ops.prover_cls()(
                 [tensor(f"t{ti}_l{li}") for li in range(n_layers)])
         else:
             # a sharded tree's layers from log k = mesh.log_size down to
@@ -279,6 +276,6 @@ def load_prover_checkpoint(path: str, twiddles, device="cpu", mesh=None):
             sharded = any(shards)
             tree.commitment = ShardedMerkleProver(mesh, [
                 tensor(f"t{ti}_l{li}", sharded and li >= mesh.log_size)
-                for li in range(n_layers)], sharded)
+                for li in range(n_layers)], sharded, merkle_ops)
         scheme.trees.append(tree)
     return scheme, channel

@@ -80,6 +80,11 @@ class Poseidon252MerkleProver(MerkleProver):
         return Poseidon252MerkleProver(layers)
 
     @staticmethod
+    def _hash_layer(log: int, prev: Optional[torch.Tensor],
+                    columns: Sequence[torch.Tensor], device) -> torch.Tensor:
+        return pos.merkle_layer(prev, columns, 1 << log, device)
+
+    @staticmethod
     def digest(words) -> FieldElement252:
         return FieldElement252(
             sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(words)))

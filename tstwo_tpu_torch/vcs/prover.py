@@ -144,6 +144,13 @@ class MerkleProver:
         return digest_words_to_bytes(words)
 
     @staticmethod
+    def _hash_layer(log: int, prev: Optional[torch.Tensor],
+                    columns: Sequence[torch.Tensor], device) -> torch.Tensor:
+        """One layer [8, 2^log] of this flavour from its child layer and
+        columns: the top of a sharded tree (parallel/merkle.py)."""
+        return commit_on_layer(log, prev, columns, device)
+
+    @staticmethod
     def commit(columns: Sequence[torch.Tensor], device=None) -> "MerkleProver":
         """Entries of `columns` are single columns [n] or stacks [C, n] of
         C same-size columns; the tree hashes them in the given order within
