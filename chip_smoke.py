@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card at the shapes its path gives it, then
-drives eight paths, each with the launch counts set to 0 just before it and
+drives nine paths, each with the launch counts set to 0 just before it and
 read just after:
 
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
@@ -17,6 +17,13 @@ read just after:
     host (`commit_host`) and on the card (`commit`): the same result, the
     host round trips of each counted, `commit`'s dispatch free of any
     synchronising call;
+  * the public API with no device named (phase `defaults`): every callable
+    of tests/test_torch_defaults.py's CREATORS puts its result on cuda:0;
+    the README's custom-AIR recipe at wide Fibonacci 2^18 x 64, from a
+    host trace, from a card trace and resumed from a checkpoint, gives
+    `prove_wide_fibonacci(18, 64)`'s proof and launches what it launches;
+    LogUp 2^12 and a GKR batch built without a device equal their
+    device="cuda" twins;
   * the proof-of-work grind, host against card at pow_bits 12, 16, 20
     and 26, then wide Fibonacci 2^18 x 64 at 96 bits of security
     (stwo-cairo's secure_pcs_config: pow_bits 26, 70 queries), which must
@@ -728,6 +735,9 @@ def main() -> None:
     # 6b. the FRI commit with its transcript on the card against the host's
     fri_transcript(device, card)
 
+    # 6c. the public API with no device named: on the card, the same proofs
+    defaults_phase(device, single_json[(18, 64)])
+
     # 7-8. the grind, host against card; the 96-bit prove, which runs it
     grind_rates(device)
     counts["blake2s_grind"] = secure_prove(device)["blake2s_grind"]
@@ -925,6 +935,264 @@ def fri_transcript(device, card: str, log_n: int = 18, seq: int = 64) -> None:
           f"{', '.join(f'{w * 1e3:.3f}' for w in walls['commit'])} ms, "
           f"commit_host "
           f"{', '.join(f'{w * 1e3:.3f}' for w in walls['commit_host'])} ms")
+
+
+def recipe_prove(columns, log_n: int, seq: int, checkpoint=None):
+    """The README's custom-AIR recipe at wide Fibonacci's width: the
+    commitment scheme, its two trees and `prove` assembled from the public
+    classes as examples/wide_fibonacci.py does, naming no device.  With
+    `checkpoint` (a path) the scheme and channel are saved after the trace
+    commit and the prove goes on from the loaded copy, which must lie on
+    cuda:0."""
+    import torch
+
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.constraint_framework import (FrameworkComponent,
+                                                      TraceLocationAllocator)
+    from tstwo_tpu_torch.examples.wide_fibonacci import WideFibonacciEval
+    from tstwo_tpu_torch.fields import QM31
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.pcs.prover import CommitmentSchemeProver
+    from tstwo_tpu_torch.poly.circle_poly import CircleEvaluation
+    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
+    from tstwo_tpu_torch.prover import prove
+    from tstwo_tpu_torch.serialize import (load_prover_checkpoint,
+                                           save_prover_checkpoint)
+
+    cuda0 = torch.device("cuda", 0)
+    config = PcsConfig()
+    domain = CanonicCoset.new(log_n).circle_domain()
+    trace = [CircleEvaluation(domain, c) for c in columns]
+    twiddles = precompute_twiddles(CanonicCoset.new(
+        log_n + 1 + config.fri_config.log_blowup_factor)
+        .circle_domain().half_coset)
+    channel = Blake2sChannel()
+    scheme = CommitmentSchemeProver(config, twiddles)
+    if scheme.device != cuda0:
+        fail(f"defaults: CommitmentSchemeProver chose {scheme.device}")
+    tb = scheme.tree_builder()
+    tb.extend_evals([])
+    tb.commit(channel)
+    channel.mix_u64(log_n)
+    tb = scheme.tree_builder()
+    tb.extend_evals(trace)
+    tb.commit(channel)
+    if any(ev.values.device != cuda0 for ev in scheme.trees[1].evaluations):
+        fail("defaults: the trace was not extended on cuda:0")
+    if checkpoint is not None:
+        save_prover_checkpoint(checkpoint, scheme, channel)
+        scheme, channel = load_prover_checkpoint(checkpoint, twiddles)
+        if scheme.device != cuda0 or any(
+                ev.values.device != cuda0
+                for tree in scheme.trees for ev in tree.evaluations):
+            fail(f"defaults: load_prover_checkpoint chose {scheme.device}")
+    component = FrameworkComponent(TraceLocationAllocator(),
+                                   WideFibonacciEval(log_n, seq), QM31.zero())
+    return prove([component], channel, scheme), component, config
+
+
+def logup_recipe(log_n: int):
+    """The LogUp lookup prove of examples/logup_lookup.py assembled by
+    hand with no device named: its preprocessed column from
+    `Seq(log_n).gen_column()`, its interaction trace from
+    `LogupTraceGenerator(log_n)`."""
+    import torch
+
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.constraint_framework import (FrameworkComponent,
+                                                      TraceLocationAllocator)
+    from tstwo_tpu_torch.constraint_framework.logup import (
+        LogupTraceGenerator, LookupElements)
+    from tstwo_tpu_torch.constraint_framework.preprocessed import Seq
+    from tstwo_tpu_torch.examples import logup_lookup as ll
+    from tstwo_tpu_torch.fields import QM31
+    from tstwo_tpu_torch.ops import m31
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.pcs.prover import CommitmentSchemeProver
+    from tstwo_tpu_torch.poly.circle_poly import CircleEvaluation
+    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
+    from tstwo_tpu_torch.prover import prove
+
+    config = PcsConfig()
+    val, mult = ll.generate_trace(log_n, seed=0)
+    domain = CanonicCoset.new(log_n).circle_domain()
+    twiddles = precompute_twiddles(CanonicCoset.new(
+        log_n + 1 + config.fri_config.log_blowup_factor)
+        .circle_domain().half_coset)
+    channel = Blake2sChannel()
+    scheme = CommitmentSchemeProver(config, twiddles)
+    tb = scheme.tree_builder()
+    tb.extend_evals([Seq(log_n).gen_column()])
+    tb.commit(channel)
+    channel.mix_u64(log_n)
+    tb = scheme.tree_builder()
+    tb.extend_evals([CircleEvaluation(domain, val),
+                     CircleEvaluation(domain, mult)])
+    tb.commit(channel)
+    elements = LookupElements.draw(channel, ll.RELATION_SIZE)
+    seq = Seq(log_n).gen_column().values
+    gen = LogupTraceGenerator(log_n)
+    col = gen.new_col()
+    col.write_frac(QM31.one(), elements.combine_cols([val]))
+    col.write_frac(m31.neg(mult), elements.combine_cols([seq]))
+    col.finalize_col()
+    interaction, claimed = gen.finalize_last()
+    cuda0 = torch.device("cuda", 0)
+    if gen.device != cuda0 or seq.device != cuda0 or any(
+            ev.values.device != cuda0 for ev in interaction):
+        fail("defaults: the LogUp builders did not choose cuda:0")
+    tb = scheme.tree_builder()
+    tb.extend_evals(interaction)
+    tb.commit(channel)
+    allocator = TraceLocationAllocator.new_with_preprocessed_columns(
+        [Seq(log_n).id()])
+    component = FrameworkComponent(
+        allocator, ll.LookupEval(log_n, elements, True), claimed)
+    return prove([component], channel, scheme), config, claimed
+
+
+def defaults_phase(device, example_json: str, log_n: int = 18,
+                   seq: int = 64) -> None:
+    """Phase 6c: the public API with no device named.  (1) every callable
+    of tests/test_torch_defaults.py's CREATORS, called without a device,
+    must put its result on cuda:0 (and launch its kernel where the list
+    names one), and the scan of the package must find no `device` that
+    defaults to anything but None (the numpy bridge apart); (2) the
+    README recipe at wide Fibonacci 2^18 x 64 from a trace made on the
+    host (numpy, `to_torch_u32`) and from `generate_trace` on the card:
+    both proofs must equal `prove_wide_fibonacci(18, 64)`'s (phase 6) byte
+    for byte, verify, and launch what the example's prove launches;
+    (3) a checkpoint saved after the trace commit and loaded with no
+    device finishes on cuda:0 to the same proof; (4) the LogUp prove at
+    2^12 built by hand from `LogupTraceGenerator(log)` and
+    `Seq(log).gen_column()`, and a GKR GrandProduct batch at 2^12 from a
+    numpy `Mle`, each equal to its twin with device="cuda"."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.examples.logup_lookup import (prove_logup_lookup,
+                                                       verify_logup_lookup)
+    from tstwo_tpu_torch.examples.wide_fibonacci import (
+        generate_trace, prove_wide_fibonacci, verify_wide_fibonacci)
+    from tstwo_tpu_torch.lookups.gkr import GRAND_PRODUCT, Layer, prove_batch
+    from tstwo_tpu_torch.lookups.mle import Mle
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_defaults as rule
+
+    cuda0 = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    wrong = {name: default for name, default in
+             rule.DEVICE_PARAMETERS.items()
+             if default is not None and default != rule.inspect.Parameter.empty
+             and name not in rule.ALLOWED_CPU_DEFAULT}
+    if wrong:
+        fail(f"defaults: device parameters that are not None: {wrong}")
+    for creator in rule.CREATORS:
+        before = dict(kernels.LAUNCHES)
+        out = creator.make()
+        torch.cuda.synchronize()
+        placed = [t.device for t in out if isinstance(t, torch.Tensor)]
+        if any(d != cuda0 for d in placed):
+            fail(f"defaults: {creator.id} put its result on {placed}")
+        if creator.kernel and \
+                kernels.LAUNCHES[creator.kernel] <= before[creator.kernel]:
+            fail(f"defaults: {creator.id} launched no {creator.kernel}")
+    names = {c.name for c in rule.CREATORS}
+    phase("defaults callables", time.perf_counter() - t0,
+          f"{len(rule.CREATORS)} calls of {len(names)} callables with no "
+          f"device: every result on cuda:0, every named kernel launched; "
+          f"{len(rule.DEVICE_PARAMETERS)} device parameters scanned, only "
+          f"{sorted(rule.ALLOWED_CPU_DEFAULT)} defaults to the CPU")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    t0 = time.perf_counter()
+    (example, _, _), example_launches = counted(
+        lambda: prove_wide_fibonacci(log_n, seq))
+    if proof_json(example) != example_json:
+        fail("defaults: prove_wide_fibonacci with no device differs from "
+             "phase 6's proof")
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, P, size=1 << log_n).astype(np.uint64)
+    b = rng.integers(0, P, size=1 << log_n).astype(np.uint64)
+    host = [a, b]
+    for _ in range(2, seq):
+        a, b = b, (a * a + b * b) % P
+        host.append(b)
+    host_columns = [to_torch_u32(c.astype(np.uint32)) for c in host]
+    card_columns = generate_trace(log_n, seq, seed=0)
+    if any(c.device.type != "cpu" for c in host_columns) or \
+            any(c.device != cuda0 for c in card_columns):
+        fail("defaults: the two traces are not on the CPU and the card")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        checkpoint = str(Path(tmp) / "trace_commit.npz")
+        for label, columns, path in (("host trace", host_columns, None),
+                                     ("card trace", card_columns, None),
+                                     ("checkpoint", card_columns,
+                                      checkpoint)):
+            (proof, comp, cfg), launches = counted(
+                lambda: recipe_prove(columns, log_n, seq, path))
+            if proof_json(proof) != example_json:
+                fail(f"defaults: the recipe's proof ({label}) differs from "
+                     "prove_wide_fibonacci's")
+            verify_wide_fibonacci(proof, comp, cfg, log_n)
+            if launches != example_launches:
+                fail(f"defaults: the recipe ({label}) launched {launches}, "
+                     f"the example {example_launches}")
+    counts = {k: example_launches[k] for k in MAIN_PATH_KERNELS}
+    if min(counts.values()) <= 0:
+        fail(f"defaults: a main-path kernel was not launched: {counts}")
+    phase(f"defaults recipe {log_n}x{seq}", time.perf_counter() - t0,
+          f"README recipe at 2^{log_n} x {seq}, no device named: proofs from "
+          f"a host trace, a card trace and a checkpoint resumed on cuda:0 == "
+          f"prove_wide_fibonacci({log_n}, {seq}) (no device) == phase 6, "
+          f"byte for byte, all verified; launches of each == the "
+          f"example's {json.dumps(counts, sort_keys=True)}")
+
+    t0 = time.perf_counter()
+    (proof, cfg, claimed), logup_launches = counted(lambda: logup_recipe(12))
+    twin = prove_logup_lookup(12, seed=0, device="cuda")[0]
+    if proof_json(proof) != proof_json(twin):
+        fail("defaults: the LogUp prove with no device differs from "
+             "device=\"cuda\"")
+    verify_logup_lookup(proof, cfg, 12, claimed)
+    logup_counts = {k: logup_launches[k] for k in MAIN_PATH_KERNELS}
+    if min(logup_counts.values()) <= 0:
+        fail(f"defaults: the LogUp prove left a kernel out: {logup_counts}")
+    values = np.random.default_rng(3).integers(0, P, size=(4, 1 << 12),
+                                               dtype=np.uint32)
+    layer = Layer(GRAND_PRODUCT, data=Mle(values))
+    if layer.data.evals.device != cuda0:
+        fail(f"defaults: Mle(numpy) chose {layer.data.evals.device}")
+    (gkr, _), gkr_launches = counted(
+        lambda: prove_batch(Blake2sChannel(), [layer]))
+    gkr_twin, _ = prove_batch(Blake2sChannel(), [Layer(
+        GRAND_PRODUCT, data=Mle(to_torch_u32(values, "cuda")))])
+    if flat_gkr_proof(gkr) != flat_gkr_proof(gkr_twin):
+        fail("defaults: the GKR proof with no device differs from "
+             "device=\"cuda\"")
+    if gkr_launches["deinterleave"] <= 0:
+        fail("defaults: the GKR batch launched no deinterleave")
+    phase("defaults logup gkr", time.perf_counter() - t0,
+          "LogUp 2^12 from LogupTraceGenerator(12), Seq(12).gen_column() "
+          "with no device == prove_logup_lookup(12, device=\"cuda\"), "
+          f"verified, launches {json.dumps(logup_counts, sort_keys=True)}; "
+          "GKR GrandProduct 2^12 from Mle(numpy) == Mle(to_torch_u32(.., "
+          f"\"cuda\")), deinterleave launches {gkr_launches['deinterleave']}")
 
 
 def grind_rates(device) -> None:

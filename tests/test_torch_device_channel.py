@@ -181,7 +181,7 @@ def test_state_from_channel_and_sync_host_channel_match_jax(seed):
     digest, n_sent = _state(seed)
     ours = Blake2sChannel(digest, ChannelTime(3, n_sent))
     theirs = JaxChannel(digest, JaxChannelTime(3, n_sent))
-    d, ns = dev.state_from_channel(ours)
+    d, ns = dev.state_from_channel(ours, "cpu")
     jd, jns = jax_dev.state_from_channel(theirs)
     _same(d, jd)
     assert _n(ns) == int(jns) == n_sent
@@ -248,7 +248,7 @@ def test_lazy_device_digest_equals_the_host_mix(seed):
 
 def test_digest_words_device_uploads_or_returns_the_pending_words():
     ch = Blake2sChannel(bytes(range(32)))
-    words = ch.digest_words_device()
+    words = ch.digest_words_device("cpu")
     np.testing.assert_array_equal(to_numpy_u32(words),
                                   np.frombuffer(bytes(range(32)), "<u4"))
     ch.mix_root_device(words)

@@ -215,7 +215,8 @@ def test_qm31_scalar_broadcast_matches_jax():
     q = QM31.from_ints([P - 1, 0, 1, 12345])
     rng = np.random.default_rng(13)
     a = rng.integers(0, P, size=(4, 64), dtype=np.uint32)
-    got = to_numpy_u32(qm31.mul(to_torch_u32(a), qm31.scalar(q)[:, None]))
+    got = to_numpy_u32(qm31.mul(to_torch_u32(a),
+                                qm31.scalar(q, device="cpu")[:, None]))
     want = np.asarray(jax_qm31.mul(jnp.asarray(a), jax_qm31.scalar(q)[:, None]))
     np.testing.assert_array_equal(got, want)
 

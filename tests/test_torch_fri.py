@@ -78,7 +78,7 @@ def test_fold_circle_into_line_matches_jax(log_n):
     src = _values(30 + log_n, (4, 1 << log_n))
     dst = _values(40 + log_n, (4, 1 << (log_n - 1)))
     alpha = np.array(ALPHA, np.uint32)
-    ytw = fri_ops.domain_y_itwiddles(domain)
+    ytw = fri_ops.domain_y_itwiddles(domain, "cpu")
     np.testing.assert_array_equal(
         to_numpy_u32(ytw), np.asarray(jax_fri_ops.domain_y_itwiddles(jdomain)))
     got = fri_ops.fold_circle_into_line(to_torch_u32(dst), to_torch_u32(src),
@@ -300,9 +300,9 @@ def test_poseidon_flavour_commit_takes_the_host_transcript(monkeypatch):
 
 
 def test_qm31_scalar_is_a_broadcastable_column():
-    a = qm31.scalar(QM31.from_ints([1, 2, 3, 4]), (5,))
+    a = qm31.scalar(QM31.from_ints([1, 2, 3, 4]), (5,), "cpu")
     assert tuple(a.shape) == (4, 5)
     np.testing.assert_array_equal(to_numpy_u32(a[:, 3]), [1, 2, 3, 4])
     np.testing.assert_array_equal(
-        to_numpy_u32(qm31.scalar(QM31.from_ints([1, 2, 3, 4]))),
+        to_numpy_u32(qm31.scalar(QM31.from_ints([1, 2, 3, 4]), device="cpu")),
         np.asarray(jax_qm31.scalar(JaxQM31.from_ints([1, 2, 3, 4]))))

@@ -106,7 +106,7 @@ def _jax_q(q):
 @pytest.mark.parametrize("n_vars", [0, 1, 2, 3, 5, 6])
 def test_eq_evals_match_jax_and_eq(n_vars):
     y = _rand_qm31s(n_vars, n_vars)
-    ours = EqEvals.generate(y)
+    ours = EqEvals.generate(y, device="cpu")
     theirs = jax_gkr.EqEvals.generate([_jax_q(q) for q in y])
     np.testing.assert_array_equal(to_numpy_u32(ours.evals.evals),
                                   np.asarray(theirs.evals.evals))
@@ -121,7 +121,7 @@ def test_eq_evals_match_jax_and_eq(n_vars):
 def test_gen_eq_evals_matches_scalar_eq():
     y = _rand_qm31s(3, 0)
     v = QM31.from_u32_unchecked(7, 1, 2, 3)
-    table = gkr.gen_eq_evals(y, v)
+    table = gkr.gen_eq_evals(y, v, device="cpu")
     for i in range(8):
         x = [QM31.from_base(M31((i >> (2 - b)) & 1)) for b in range(3)]
         assert table.at(i) == eq(x, y) * v
@@ -154,7 +154,7 @@ def test_mle_rejects_bad_sizes_and_dtypes():
     with pytest.raises(ValueError):
         Mle(torch.zeros((4, 3), dtype=torch.int32))
     with pytest.raises(ValueError):
-        BaseMle(np.zeros(6, dtype=np.uint32))
+        BaseMle(np.zeros(6, dtype=np.uint32), device="cpu")
     with pytest.raises(TypeError):
         Mle(torch.zeros((4, 4), dtype=torch.int64))
     with pytest.raises(IndexError):
@@ -173,7 +173,7 @@ def test_sumcheck_matches_jax_and_roundtrips(n_vars):
         claim = claim + v
     lam = QM31.one()
     proof, assignment, _, claims = sumcheck.prove_batch(
-        [claim], [SecureMle(vals)], lam, Blake2sChannel())
+        [claim], [SecureMle(vals, device="cpu")], lam, Blake2sChannel())
     jax_proof, jax_assignment, _, _ = jax_sumcheck.prove_batch(
         [_jax_q(claim)], [jax_mle.SecureMle([_jax_q(v) for v in vals])],
         _jax_q(lam), JaxChannel())
@@ -183,7 +183,8 @@ def test_sumcheck_matches_jax_and_roundtrips(n_vars):
     v_assignment, eval_claim = sumcheck.partially_verify(claim, proof,
                                                         Blake2sChannel())
     assert v_assignment == assignment
-    assert SecureMle(vals).eval_at_point(v_assignment) == eval_claim
+    assert SecureMle(vals, device="cpu").eval_at_point(v_assignment) == \
+        eval_claim
 
 
 def test_sumcheck_verify_rejects_bad_claim_and_degree():
@@ -191,7 +192,8 @@ def test_sumcheck_verify_rejects_bad_claim_and_degree():
     claim = QM31.zero()
     for v in vals:
         claim = claim + v
-    proof, _, _, _ = sumcheck.prove_batch([claim], [SecureMle(vals)],
+    proof, _, _, _ = sumcheck.prove_batch([claim],
+                                          [SecureMle(vals, device="cpu")],
                                           QM31.one(), Blake2sChannel())
     with pytest.raises(sumcheck.SumcheckError, match="sum does not match"):
         sumcheck.partially_verify(claim + QM31.one(), proof,

@@ -89,7 +89,7 @@ def test_grind_batch_plain_near_2_32_equals_hashlib(start, count, pow_bits):
     if pow_bits in (8, 10):
         assert want >= 1 << 32
     got = b2.grind_batch_plain(b2.digest_bytes_to_words(digest), start,
-                               count, pow_bits)
+                               count, pow_bits, "cpu")
     assert got == want
     assert b2.grind_batch(b2.digest_bytes_to_words(digest), start, count,
                           pow_bits, "cpu") == want
@@ -135,11 +135,11 @@ def test_poseidon_channel_grinds_on_the_host(monkeypatch):
 def test_grind_batch_refuses_bad_arguments():
     words = b2.digest_bytes_to_words(b"\x00" * 32)
     with pytest.raises(ValueError):
-        b2.grind_batch(words[:7], 0, 4, 1)
+        b2.grind_batch(words[:7], 0, 4, 1, "cpu")
     with pytest.raises(ValueError):
-        b2.grind_batch(words, 0, 0, 1)
+        b2.grind_batch(words, 0, 0, 1, "cpu")
     with pytest.raises(ValueError):
-        b2.grind_batch(words, (1 << 63) - 2, 4, 1)
+        b2.grind_batch(words, (1 << 63) - 2, 4, 1, "cpu")
 
 
 LOG_N, SEQ = 8, 8

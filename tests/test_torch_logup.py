@@ -158,11 +158,11 @@ def test_preprocessed_columns_match_jax(log):
         f"preprocessed_is_first_{log}"
     for ours, theirs in [(Seq(log), JaxSeq(log)),
                          (IsFirst(log), JaxIsFirst(log))]:
-        col = ours.gen_column()
+        col = ours.gen_column("cpu")
         assert col.values.dtype == torch.int32
         assert col.domain.log_size() == log
         _equal(col.values, theirs.gen_column().values)
-    assert list(Seq(4).gen_column().values.tolist()) == list(range(16))
+    assert list(Seq(4).gen_column("cpu").values.tolist()) == list(range(16))
 
 
 # -- assert_constraints ------------------------------------------------------
@@ -175,7 +175,7 @@ def _trace_tree(log_size, pairs, mult_delta=0):
     cols, claimed = ll.generate_interaction_trace(log_size, val_col, mult_col,
                                                   rel, pairs)
     trace_evals = TreeVec([
-        [Seq(log_size).gen_column().values],
+        [Seq(log_size).gen_column("cpu").values],
         [val_col, mult_col],
         [c.values for c in cols],
     ])
@@ -274,7 +274,7 @@ def test_trace_generator_scalar_fractions_match_jax(numerator):
         "column": (to_torch_u32(col), jnp.asarray(col)),
     }[numerator]
     den = (1, 2, 9, 8)
-    gen, jax_gen = LogupTraceGenerator(LOG), JaxGenerator(LOG)
+    gen, jax_gen = LogupTraceGenerator(LOG, "cpu"), JaxGenerator(LOG)
     for g, n, d, c in [(gen, num, QM31.from_u32_unchecked(*den),
                         to_torch_u32(col)),
                        (jax_gen, jax_num, JaxQM31.from_u32_unchecked(*den),

@@ -131,7 +131,7 @@ _RANK = textwrap.dedent("""
             tree = precompute_twiddles(
                 CanonicCoset.new(log_n).circle_domain().half_coset)
             for inverse in (False, True):
-                line = domain_line_twiddles(log_n, tree, inverse)
+                line = domain_line_twiddles(log_n, tree, inverse, "cpu")
                 fn = make_sharded_fft(mesh, log_n, line,
                                       circle_layer_twiddles(line[0]), inverse)
                 for batch in (0, 3):
@@ -151,7 +151,8 @@ _RANK = textwrap.dedent("""
                                                    PointSample)
 
         vals, itw = T.fold_inputs()
-        alpha = qm31_ops.scalar(QM31.from_u32_unchecked(1, 2, 3, 4))
+        alpha = qm31_ops.scalar(QM31.from_u32_unchecked(1, 2, 3, 4),
+                                device="cpu")
         arrays["fold"] = whole(sharded_fold_line(
             mesh, to_torch_u32(vals), to_torch_u32(itw), alpha))
 

@@ -252,7 +252,7 @@ def _jax(vals):
 
 def test_converters_roundtrip_and_refuse_out_of_range():
     vals = EDGE + _felts(np.random.default_rng(0), 5)
-    felts = pos.ints_to_felts(vals)
+    felts = pos.ints_to_felts(vals, "cpu")
     assert tuple(felts.shape) == (8, len(vals))
     assert pos.felts_to_ints(felts) == vals
     assert jax_pos.limb_array_to_ints(jax_pos.ints_to_limb_array(vals)) == vals
@@ -260,7 +260,7 @@ def test_converters_roundtrip_and_refuse_out_of_range():
     assert int(words[7, 3]) == (P - 1) >> 224 and int(words[0, 3]) == 0
     for bad in (P, -1, 1 << 256):
         with pytest.raises(ValueError, match="out of range"):
-            pos.ints_to_felts([bad])
+            pos.ints_to_felts([bad], "cpu")
 
 
 @pytest.mark.parametrize("op", ["add", "sub"])
@@ -268,8 +268,8 @@ def test_plain_add_sub_match_jax_limbs(op):
     """Against Python ints on every pair, and against the JAX limbs on the
     pairs whose sum fits their 252 bits (see the next test)."""
     a, b = _operands(1)
-    got = pos.felts_to_ints(getattr(pos, op)(pos.ints_to_felts(a),
-                                             pos.ints_to_felts(b)))
+    got = pos.felts_to_ints(getattr(pos, op)(pos.ints_to_felts(a, "cpu"),
+                                             pos.ints_to_felts(b, "cpu")))
     assert got == [(x + y) % P if op == "add" else (x - y) % P
                    for x, y in zip(a, b)]
     fits = [i for i, (x, y) in enumerate(zip(a, b))
@@ -286,7 +286,7 @@ def test_add_keeps_the_carry_the_jax_limbs_drop():
     random pairs), and `sub` with it.  The port's results are the
     integers', which the host's Hades, the verifier's oracle, computes."""
     a, b = [P - 1, P - 2, P - 1], [P - 1, P - 1, 0]
-    fa, fb = pos.ints_to_felts(a), pos.ints_to_felts(b)
+    fa, fb = pos.ints_to_felts(a, "cpu"), pos.ints_to_felts(b, "cpu")
     assert pos.felts_to_ints(pos.add(fa, fb))[:2] == [P - 2, P - 3]
     assert pos.felts_to_ints(pos.sub(fa, fb))[2] == P - 1
     assert jax_pos.limb_array_to_ints(jax_pos.add(_jax(a[:2]), _jax(b[:2]))) \
@@ -295,7 +295,8 @@ def test_add_keeps_the_carry_the_jax_limbs_drop():
 
 def test_plain_product_matches_jax_montgomery_and_ints():
     a, b = _operands(2)
-    got = pos.felts_to_ints(pos.mul(pos.ints_to_felts(a), pos.ints_to_felts(b)))
+    got = pos.felts_to_ints(pos.mul(pos.ints_to_felts(a, "cpu"),
+                                    pos.ints_to_felts(b, "cpu")))
     assert got == [(x * y) % P for x, y in zip(a, b)]
     # a b through the JAX package's Montgomery product (radix 2^252)
     via_jax = jax_pos.from_mont(jax_pos.mont_mul(jax_pos.to_mont(_jax(a)),
@@ -308,7 +309,8 @@ def test_plain_product_at_the_final_subtraction():
     conditional subtraction, and products with 0, 1 and p - 1."""
     a = [P - 1, P - 1, P - 2, 1 << 251, (1 << 251) + 5, 1, 0, P - 1]
     b = [P - 1, P - 2, P - 2, 1 << 251, (1 << 251) - 9, P - 1, P - 1, 1]
-    got = pos.felts_to_ints(pos.mul(pos.ints_to_felts(a), pos.ints_to_felts(b)))
+    got = pos.felts_to_ints(pos.mul(pos.ints_to_felts(a, "cpu"),
+                                    pos.ints_to_felts(b, "cpu")))
     assert got == [(x * y) % P for x, y in zip(a, b)]
 
 
@@ -341,7 +343,8 @@ def test_plain_hades_matches_host(batch):
     if batch > 3:
         states[1] = [P - 1, P - 1, P - 1]
         states[2] = [1, 0, P - 1]
-    felts = [pos.ints_to_felts([s[k] for s in states]) for k in range(3)]
+    felts = [pos.ints_to_felts([s[k] for s in states], "cpu")
+             for k in range(3)]
     out = pos.hades_permutation(felts)
     assert [tuple(o.shape) for o in out] == [(8, batch)] * 3
     got = list(zip(*(pos.felts_to_ints(o) for o in out)))
@@ -358,7 +361,8 @@ def test_plain_hades_matches_host(batch):
 def test_plain_poseidon_hash_many_matches_host(n_inputs, batch):
     rng = np.random.default_rng(10 * n_inputs + batch)
     rows = [_felts(rng, n_inputs) for _ in range(batch)]
-    cols = [pos.ints_to_felts([r[k] for r in rows]) for k in range(n_inputs)]
+    cols = [pos.ints_to_felts([r[k] for r in rows], "cpu")
+            for k in range(n_inputs)]
     got = pos.felts_to_ints(pos.poseidon_hash_many(cols))
     assert got == [jax_channel.poseidon_hash_many(r) for r in rows]
 
@@ -367,14 +371,14 @@ def test_hash_many_and_state_shapes_are_checked():
     with pytest.raises(ValueError, match="at least one"):
         pos.poseidon_hash_many([])
     with pytest.raises(ValueError, match="three"):
-        pos.hades_permutation_plain([pos.ints_to_felts([1])] * 2)
+        pos.hades_permutation_plain([pos.ints_to_felts([1], "cpu")] * 2)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    felts = pos.ints_to_felts([1, 2])
+    felts = pos.ints_to_felts([1, 2], "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         pos.hades_permutation_cuda([felts] * 3)
     with pytest.raises(ValueError, match="CUDA"):
-        pos.merkle_layer_cuda(pos.ints_to_felts([1, 2, 3, 4]), [])
+        pos.merkle_layer_cuda(pos.ints_to_felts([1, 2, 3, 4], "cpu"), [])
     with pytest.raises(ValueError, match="CUDA"):
         pos.merkle_layer_cuda(None, [], 2, "cpu")

@@ -158,7 +158,8 @@ def test_layer_plain_matches_host_hash_node(log, n_cols, with_prev):
     entries = ([to_torch_u32(cols[:n_cols // 2])] if n_cols >= 2 else []) + \
         [to_torch_u32(c) for c in cols[n_cols // 2 if n_cols >= 2 else 0:]]
     got = pos.felts_to_ints(pos.merkle_layer(
-        None if prev is None else pos.ints_to_felts(prev), entries, n))
+        None if prev is None else pos.ints_to_felts(prev, "cpu"), entries, n,
+        "cpu"))
     want = [hash_node(
         (FieldElement252(prev[2 * i]), FieldElement252(prev[2 * i + 1]))
         if with_prev else None, [M31(int(c[i])) for c in cols]).value

@@ -103,7 +103,7 @@ def test_row_quotients_match_the_host_scalar_reference():
         rng.integers(0, P, size=4).tolist()))] for _ in range(3)]
     batches = quotients.ColumnSampleBatch.new_vec(samples)
     coeff = QM31.from_ints([9, 8, 7, 6])
-    xs, ys = quotients.domain_points_bitrev(domain)
+    xs, ys = quotients.domain_points_bitrev(domain, "cpu")
     got = to_numpy_u32(quotients._accumulate_rows(to_torch_u32(cols), xs, ys,
                                                   batches, coeff))
     consts = quotients.quotient_constants(batches, coeff)

@@ -13,6 +13,7 @@ from ..fields import QM31
 from ..ops import qm31 as qm31_ops
 from ..poly.circle_poly import SecureCirclePoly, SecureEvaluation
 from ..poly.twiddles import TwiddleTree
+from ..utils import entry_device
 
 
 class PointEvaluationAccumulator:
@@ -54,13 +55,13 @@ class DomainEvaluationAccumulator:
 
     def __init__(self, random_coeff: QM31, max_log_size: int,
                  total_columns: int, twiddles: Optional[TwiddleTree] = None,
-                 device="cpu"):
+                 device=None):
         self.random_coeff_powers = generate_secure_powers(
             random_coeff, total_columns)
         self.sub_accumulations: List[Optional[torch.Tensor]] = (
             [None] * (max_log_size + 1))
         self.twiddles = twiddles
-        self.device = device
+        self.device = entry_device(device)
 
     def columns(self, n_cols_per_size) -> List[ColumnAccumulator]:
         """Hand out accumulators; the i-th column overall gets

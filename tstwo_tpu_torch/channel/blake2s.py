@@ -56,10 +56,15 @@ class Blake2sChannel:
         self._digest = value
         self._device_digest = None
 
-    def digest_words_device(self, device="cpu"):
+    def digest_words_device(self, device=None):
         """The digest as int32 [8] LE words on `device`: no fetch if it is
-        already on the device, else one asynchronous upload."""
+        already on the device, else one asynchronous upload.  Without
+        `device`, the device digest where it lies (the same tensor), or,
+        when there is none, an upload to CUDA device 0
+        (`utils.entry_device`)."""
         if self._device_digest is not None:
+            if device is None:
+                return self._device_digest
             return self._device_digest.to(device)
         from .device import upload_words
 

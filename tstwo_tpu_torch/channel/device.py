@@ -30,17 +30,18 @@ import numpy as np
 import torch
 
 from ..ops import blake2s as b2
+from ..utils import entry_device
 
 _MASK = 0xFFFFFFFF
 
 
-def upload_words(words, device="cpu") -> torch.Tensor:
-    """u32 words (any ints) as an int32 tensor on `device`.  To a CUDA
-    device the copy goes from pinned memory, asynchronously: the host does
-    not wait for the stream to drain."""
+def upload_words(words, device=None) -> torch.Tensor:
+    """u32 words (any ints) as an int32 tensor on `device`, CUDA device 0
+    unless named.  To a CUDA device the copy goes from pinned memory,
+    asynchronously: the host does not wait for the stream to drain."""
     arr = (np.asarray(words, dtype=np.uint64) & _MASK).astype(np.uint32)
     host = torch.from_numpy(arr.view(np.int32).copy())
-    device = torch.device(device)
+    device = entry_device(device)
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
@@ -51,12 +52,15 @@ def n_sent_words(n_sent: int):
     return [n_sent & _MASK, (n_sent >> 32) & _MASK]
 
 
-def state_from_channel(channel, device="cpu"):
+def state_from_channel(channel, device=None):
     """(digest int32 [8], n_sent int32 [2]) on `device` from a host
     Blake2sChannel, by asynchronous uploads: no fetch, and no upload of a
-    digest already on the device (`Blake2sChannel.digest_words_device`)."""
-    n_sent = upload_words(n_sent_words(channel.channel_time.n_sent), device)
-    return channel.digest_words_device(device), n_sent
+    digest already on the device (`Blake2sChannel.digest_words_device`).
+    Without `device`, where the channel's device digest lies, else on CUDA
+    device 0."""
+    words = n_sent_words(channel.channel_time.n_sent)
+    digest = channel.digest_words_device(device)
+    return digest, upload_words(words, digest.device)
 
 
 def sync_host_channel(channel, digest_words, n_sent: int,

@@ -29,6 +29,7 @@ from ..lookups.utils import Fraction
 from ..ops import qm31 as qm31_ops
 from ..ops.prefix_sum import inclusive_prefix_sum_bit_rev_circle
 from ..poly.circle_poly import CircleEvaluation
+from ..utils import entry_device
 
 P = (1 << 31) - 1
 
@@ -199,11 +200,12 @@ class LogupTraceGenerator:
     running column sums; `finalize_last` prefix-sums the final column in
     coset order and returns (base-coordinate evaluations, claimed_sum).
     Scalars written to a column are placed on `device`, the device of the
-    trace columns."""
+    trace columns: CUDA device 0 unless the caller names one
+    (`utils.entry_device`)."""
 
-    def __init__(self, log_size: int, device="cpu"):
+    def __init__(self, log_size: int, device=None):
         self.log_size = log_size
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self._cols: List[torch.Tensor] = []
 
     def new_col(self) -> LogupColGenerator:

@@ -11,6 +11,7 @@ import torch
 
 from ..circle import CanonicCoset
 from ..poly.circle_poly import CircleEvaluation
+from ..utils import entry_device
 
 
 @dataclass(frozen=True)
@@ -28,9 +29,10 @@ class IsFirst:
     def id(self) -> PreProcessedColumnId:
         return PreProcessedColumnId(f"preprocessed_is_first_{self.log_size}")
 
-    def gen_column(self, device="cpu") -> CircleEvaluation:
+    def gen_column(self, device=None) -> CircleEvaluation:
+        """The column on `device`, CUDA device 0 unless named."""
         vals = torch.zeros(1 << self.log_size, dtype=torch.int32,
-                           device=device)
+                           device=entry_device(device))
         vals[0] = 1
         domain = CanonicCoset.new(self.log_size).circle_domain()
         return CircleEvaluation(domain, vals)
@@ -46,7 +48,9 @@ class Seq:
     def id(self) -> PreProcessedColumnId:
         return PreProcessedColumnId(f"preprocessed_seq_{self.log_size}")
 
-    def gen_column(self, device="cpu") -> CircleEvaluation:
+    def gen_column(self, device=None) -> CircleEvaluation:
+        """The column on `device`, CUDA device 0 unless named."""
         domain = CanonicCoset.new(self.log_size).circle_domain()
         return CircleEvaluation(domain, torch.arange(
-            1 << self.log_size, dtype=torch.int32, device=device))
+            1 << self.log_size, dtype=torch.int32,
+            device=entry_device(device)))

@@ -17,6 +17,7 @@ import torch
 from ..fields import M31, QM31
 from ..ops.fri_ops import _deinterleave
 from ..tracing import span
+from ..utils import entry_device
 from . import npqm31
 from .mle import BaseMle, Mle
 from .sumcheck import (SumcheckProof, partially_verify as sumcheck_verify,
@@ -111,7 +112,9 @@ class EqEvals:
         self.evals = evals
 
     @staticmethod
-    def generate(y: Sequence[QM31], device="cpu") -> "EqEvals":
+    def generate(y: Sequence[QM31], device=None) -> "EqEvals":
+        """On `device`, CUDA device 0 unless named."""
+        device = entry_device(device)
         y = list(y)
         if not y:
             return EqEvals(y, Mle(npqm31.scalar(QM31.one(), 1, device)))
@@ -148,10 +151,11 @@ def _next_logup_singles(d: torch.Tensor):
     return npqm31.add(d0, d1), npqm31.mul(d0, d1)
 
 
-def gen_eq_evals(y: Sequence[QM31], v: QM31, device="cpu") -> Mle:
-    """eq(x, y) * v for all x in {0,1}^n, bit-reversed
-    (reference backend/cpu/lookups/gkr.ts:90-108): doubles the table once
-    per variable, most-significant variable last."""
+def gen_eq_evals(y: Sequence[QM31], v: QM31, device=None) -> Mle:
+    """eq(x, y) * v for all x in {0,1}^n, bit-reversed, on `device` (CUDA
+    device 0 unless named) (reference backend/cpu/lookups/gkr.ts:90-108):
+    doubles the table once per variable, most-significant variable last."""
+    device = entry_device(device)
     arr = npqm31.scalar(v, 1, device)
     for yi in reversed(list(y)):
         tmp = npqm31.mul(arr, npqm31.scalar(yi, 1, device))

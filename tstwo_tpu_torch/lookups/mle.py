@@ -1,8 +1,9 @@
 """Multilinear extensions, stored bit-reversed over the boolean hypercube.
 
 A secure-field MLE holds an int32 [4, n] QM31 tensor; a base-field MLE an
-int32 [n] tensor.  Tensors stay on the device they were given; numpy
-arrays and host values land on the CPU.  reference lookups/mle.ts.
+int32 [n] tensor.  Tensors stay on the device they were given unless a
+`device` is named; numpy arrays and host values go to `device`, CUDA
+device 0 unless named (`utils.entry_device`).  reference lookups/mle.ts.
 """
 from __future__ import annotations
 
@@ -12,19 +13,20 @@ import numpy as np
 import torch
 
 from ..fields import M31, QM31
-from ..utils import to_torch_u32
+from ..utils import entry_device, to_torch_u32
 from . import npqm31
 from .utils import UnivariatePoly
 
 Evals = Union[torch.Tensor, np.ndarray]
 
 
-def _as_int32(arr: Evals) -> torch.Tensor:
+def _as_int32(arr: Evals, device=None) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         if arr.dtype != torch.int32:
             raise TypeError(f"expected an int32 tensor, got {arr.dtype}")
-        return arr
-    return to_torch_u32(np.asarray(arr).astype(np.uint32))
+        return arr if device is None else arr.to(device)
+    return to_torch_u32(np.asarray(arr).astype(np.uint32),
+                        entry_device(device))
 
 
 def _fold_first_variable(arr: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
@@ -37,11 +39,11 @@ def _fold_first_variable(arr: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
 class Mle:
     """Secure-field MLE: evals int32 [4, 2^n]."""
 
-    def __init__(self, evals: Union[Evals, Sequence[QM31]]):
+    def __init__(self, evals: Union[Evals, Sequence[QM31]], device=None):
         if isinstance(evals, (torch.Tensor, np.ndarray)):
-            self.evals = _as_int32(evals)
+            self.evals = _as_int32(evals, device)
         else:
-            self.evals = npqm31.from_qm31_list(list(evals))
+            self.evals = npqm31.from_qm31_list(list(evals), device)
         n = self.evals.shape[1]
         if n == 0 or (n & (n - 1)):
             raise ValueError("number of evaluations must be a power of two")
@@ -83,12 +85,13 @@ class Mle:
 class BaseMle:
     """Base-field MLE: evals int32 [2^n]."""
 
-    def __init__(self, evals: Union[Evals, Sequence[M31]]):
+    def __init__(self, evals: Union[Evals, Sequence[M31]], device=None):
         if isinstance(evals, (torch.Tensor, np.ndarray)):
-            self.evals = _as_int32(evals)
+            self.evals = _as_int32(evals, device)
         else:
             self.evals = to_torch_u32(
-                np.array([e.value for e in evals], dtype=np.uint32))
+                np.array([e.value for e in evals], dtype=np.uint32),
+                entry_device(device))
         n = len(self.evals)
         if n == 0 or (n & (n - 1)):
             raise ValueError("number of evaluations must be a power of two")

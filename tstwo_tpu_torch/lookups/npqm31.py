@@ -13,14 +13,15 @@ import torch
 from ..fields import QM31
 from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
-from ..utils import to_numpy_u32, to_torch_u32
+from ..utils import entry_device, to_numpy_u32, to_torch_u32
 
 P = m31_ops.P
 
 
-def from_qm31_list(vals: Sequence[QM31], device="cpu") -> torch.Tensor:
+def from_qm31_list(vals: Sequence[QM31], device=None) -> torch.Tensor:
+    """int32 [4, n] on `device`, CUDA device 0 unless named."""
     arr = np.array([v.to_ints() for v in vals], dtype=np.uint32)
-    return to_torch_u32(arr.T.reshape(4, -1), device)
+    return to_torch_u32(arr.T.reshape(4, -1), entry_device(device))
 
 
 def to_qm31_list(arr: torch.Tensor) -> List[QM31]:
@@ -29,8 +30,8 @@ def to_qm31_list(arr: torch.Tensor) -> List[QM31]:
             for i in range(a.shape[1])]
 
 
-def scalar(v: QM31, n: int = 1, device="cpu") -> torch.Tensor:
-    """v repeated n times as int32 [4, n]."""
+def scalar(v: QM31, n: int = 1, device=None) -> torch.Tensor:
+    """v repeated n times as int32 [4, n] on `device` (as qm31.scalar)."""
     return qm31_ops.scalar(v, (n,), device).contiguous()
 
 

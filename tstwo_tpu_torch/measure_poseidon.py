@@ -32,7 +32,7 @@ import torch
 from . import kernels
 from .measure_roofline import time_call
 from .ops import poseidon252 as pos
-from .utils import to_torch_u32
+from .utils import entry_device, to_torch_u32
 
 KERNELS = ("hades_permutation_kernel", "poseidon_merkle_layer_kernel")
 # (log of the nodes, columns, whether the layer has a child layer)
@@ -92,10 +92,10 @@ def compile_report(csrc: Path) -> dict:
     return out
 
 
-def measure(device="cuda", seed: int = 0) -> dict:
+def measure(device=None, seed: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the Poseidon probes need a CUDA device")
-    device = torch.device(device)
+    device = entry_device(device)
     rng = np.random.default_rng(seed)
 
     def felts(n):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..utils import as_int32_bits
+from ..utils import as_int32_bits, entry_device
 
 IV = np.array([
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -191,10 +191,11 @@ def hash_words_major(words: torch.Tensor, byte_len: int) -> torch.Tensor:
 
 def merkle_layer_plain(prev: Optional[torch.Tensor],
                        columns: Sequence[torch.Tensor], n: int = 1,
-                       device="cpu") -> torch.Tensor:
+                       device=None) -> torch.Tensor:
     """One Merkle layer in plain PyTorch, on any device: the even/odd split
     of the child layer, a concatenation with the column rows, the hash.
-    `n` and `device` are read only when there is neither prev nor column."""
+    `n` and `device` are read only when there is neither prev nor column
+    (then `device` is CUDA device 0 unless named)."""
     parts = []
     if prev is not None:
         parts += [prev[:, 0::2], prev[:, 1::2]]
@@ -202,7 +203,8 @@ def merkle_layer_plain(prev: Optional[torch.Tensor],
     if parts:
         words = torch.cat(parts, dim=0)
     else:
-        words = torch.zeros((0, n), dtype=torch.int32, device=device)
+        words = torch.zeros((0, n), dtype=torch.int32,
+                            device=entry_device(device))
     return hash_words_major_plain(words, 4 * words.shape[0])
 
 
@@ -224,14 +226,15 @@ def merkle_layer_cuda(prev: Optional[torch.Tensor],
 
 def merkle_layer(prev: Optional[torch.Tensor],
                  columns: Sequence[torch.Tensor], n: int = 1,
-                 device="cpu") -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """node i = blake2s(prev[:, 2i] || prev[:, 2i+1] || column values at i).
 
     prev: int32 [8, 2n] digest words of the child layer, or None at a leaf
     layer.  columns: entries [n] or [C, n], hashed in order.  With neither,
-    n hashes of the empty message on `device`.  Returns int32 [8, n]."""
+    n hashes of the empty message on `device` (CUDA device 0 unless
+    named).  Returns int32 [8, n]."""
     first = prev if prev is not None else (columns[0] if columns else None)
-    device = torch.device(device) if first is None else first.device
+    device = entry_device(device) if first is None else first.device
     if kernels.is_cuda(device):
         return merkle_layer_cuda(prev, columns, n, device)
     return merkle_layer_plain(prev, columns, n, device)
@@ -320,12 +323,14 @@ def _grind_args(digest_words, start: int, count: int, pow_bits: int):
 
 
 def grind_hit_plain(digest_words, start: int, count: int, pow_bits: int,
-                    device="cpu") -> torch.Tensor:
-    """Plain PyTorch version on `device`: the [10, count] messages, their
-    digests by `hash_words_major_plain`, the trailing zeros in int64, and
-    the first nonce with >= pow_bits of them as an int64 [1] tensor on
-    `device` (-1 if none), without a wait for the device."""
+                    device=None) -> torch.Tensor:
+    """Plain PyTorch version on `device` (CUDA device 0 unless named): the
+    [10, count] messages, their digests by `hash_words_major_plain`, the
+    trailing zeros in int64, and the first nonce with >= pow_bits of them
+    as an int64 [1] tensor on `device` (-1 if none), without a wait for
+    the device."""
     words = _grind_args(digest_words, start, count, pow_bits)
+    device = entry_device(device)
     nonces = start + torch.arange(count, dtype=torch.int64, device=device)
     msg = torch.cat([
         torch.from_numpy(words.astype(np.int64)).to(device)[:, None]
@@ -352,7 +357,7 @@ def grind_hit_cuda(digest_words, start: int, count: int, pow_bits: int,
 
 
 def grind_batch_plain(digest_words, start: int, count: int, pow_bits: int,
-                      device="cpu") -> int:
+                      device=None) -> int:
     """`grind_hit_plain` read back: the first hit, or -1."""
     return int(grind_hit_plain(digest_words, start, count, pow_bits,
                                device).item())
@@ -366,13 +371,13 @@ def grind_batch_cuda(digest_words, start: int, count: int, pow_bits: int,
 
 
 def grind_batch(digest_words, start: int, count: int, pow_bits: int,
-                device="cpu") -> int:
+                device=None) -> int:
     """The least nonce in [start, start + count) whose message digest ||
     LE64(nonce) hashes to >= pow_bits trailing zeros, or -1.
     `digest_words`: the channel digest as 8 u32 words
-    (`digest_bytes_to_words`).  A CUDA device launches the kernel, the CPU
-    runs the plain version."""
-    device = torch.device(device)
+    (`digest_bytes_to_words`).  A CUDA device (device 0 unless named)
+    launches the kernel, the CPU runs the plain version."""
+    device = entry_device(device)
     if kernels.is_cuda(device):
         return grind_batch_cuda(digest_words, start, count, pow_bits, device)
     return grind_batch_plain(digest_words, start, count, pow_bits, device)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import entry_device
 from . import m31, qm31
 
 
@@ -100,12 +101,13 @@ def decompose(values: torch.Tensor):
     return torch.cat([g_first, g_second], dim=1), lam
 
 
-def domain_y_itwiddles(domain, device="cpu") -> torch.Tensor:
+def domain_y_itwiddles(domain, device=None) -> torch.Tensor:
     """1/y over the half coset in bit-reversed order (for circle->line
-    fold), cached per device: only the first call for a domain uploads."""
+    fold) on `device` (CUDA device 0 unless named), cached per device:
+    only the first call for a domain uploads."""
     return _domain_y_itwiddles_on(domain.half_coset.initial_index.value,
                                   domain.half_coset.log_size,
-                                  torch.device(device))
+                                  entry_device(device))
 
 
 @lru_cache(maxsize=None)

@@ -35,7 +35,8 @@ import torch
 
 from .. import kernels
 from ..channel.poseidon import _ARK, _N_ROUNDS, _R_F, P252
-from ..utils import as_int32_bits, to_numpy_u32, to_torch_u32
+from ..utils import (as_int32_bits, entry_device, to_numpy_u32,
+                     to_torch_u32)
 
 LIMB_BITS = 28
 N_LIMBS = 9                     # 9 * 28 = 252
@@ -53,13 +54,14 @@ def _int_to_words(v: int) -> List[int]:
     return [(v >> (32 * w)) & _U32 for w in range(8)]
 
 
-def ints_to_felts(vals: Sequence[int], device="cpu") -> torch.Tensor:
-    """Python ints below p -> int32 [8, n] on `device`."""
+def ints_to_felts(vals: Sequence[int], device=None) -> torch.Tensor:
+    """Python ints below p -> int32 [8, n] on `device`, CUDA device 0
+    unless named."""
     for v in vals:
         if not 0 <= v < P252:
             raise ValueError("felt252 out of range")
     arr = np.array([_int_to_words(v) for v in vals], dtype=np.uint32)
-    return to_torch_u32(arr.reshape(len(vals), 8).T, device)
+    return to_torch_u32(arr.reshape(len(vals), 8).T, entry_device(device))
 
 
 def felts_to_ints(felts: torch.Tensor) -> List[int]:
@@ -336,11 +338,12 @@ def poseidon_hash_many(felt_cols: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def merkle_layer_plain(prev: Optional[torch.Tensor],
                        columns: Sequence[torch.Tensor], n: int = 1,
-                       device="cpu") -> torch.Tensor:
+                       device=None) -> torch.Tensor:
     """One Merkle layer in plain PyTorch, on any device: the even/odd split
     of the child layer, the columns stacked, zero padded and packed 8 to a
     felt, the sponge.  `n` and `device` are read only when there is
-    neither prev nor column."""
+    neither prev nor column (then `device` is CUDA device 0 unless
+    named)."""
     felts = []
     if prev is not None:
         felts += [prev[:, 0::2], prev[:, 1::2]]
@@ -354,7 +357,7 @@ def merkle_layer_plain(prev: Optional[torch.Tensor],
         stacked = torch.nn.functional.pad(stacked, (0, 0, 0, pad))
         felts += [pack_m31_columns(block)
                   for block in stacked.split(ELEMENTS_IN_BLOCK)]
-    return _sponge(felts, n, device, hades_permutation_plain)
+    return _sponge(felts, n, entry_device(device), hades_permutation_plain)
 
 
 def merkle_layer_cuda(prev: Optional[torch.Tensor],
@@ -387,15 +390,16 @@ def merkle_layer_cuda(prev: Optional[torch.Tensor],
 
 def merkle_layer(prev: Optional[torch.Tensor],
                  columns: Sequence[torch.Tensor], n: int = 1,
-                 device="cpu") -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """node i = poseidon_hash_many([prev[:, 2i], prev[:, 2i+1]] + the column
     values at i packed 8 to a felt), as the host's hash_node.
 
     prev: felts [8, 2n] of the child layer, or None at a leaf layer.
     columns: entries [n] or [C, n] of canonical M31, hashed in order.  With
-    neither, n hashes of no value on `device`.  Returns felts [8, n]."""
+    neither, n hashes of no value on `device` (CUDA device 0 unless
+    named).  Returns felts [8, n]."""
     first = prev if prev is not None else (columns[0] if columns else None)
-    device = torch.device(device) if first is None else first.device
+    device = entry_device(device) if first is None else first.device
     if kernels.is_cuda(device):
         return merkle_layer_cuda(prev, columns, n, device)
     return merkle_layer_plain(prev, columns, n, device)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import entry_device
 from . import cm31, m31
 from .m31 import add_w, narrow, sub_w, wide
 
@@ -97,14 +98,18 @@ def from_m31(a):
     return torch.stack([a, z, z, z])
 
 
-def scalar(q, shape=(), device="cpu"):
-    """A host QM31 (or its 4 ints) as an int32 [4, 1, ...] tensor that
-    broadcasts against [4, *shape] (or [4] when shape is empty)."""
+def scalar(q, shape=(), device=None):
+    """A host QM31 (or its 4 ints) as an int32 [4, 1, ...] tensor on
+    `device` (CUDA device 0 unless named) that broadcasts against
+    [4, *shape] (or [4] when shape is empty)."""
     vals = np.asarray(q.to_ints() if hasattr(q, "to_ints") else q,
                       dtype=np.int64).astype(np.int32)
-    out = torch.from_numpy(vals).to(device).reshape(4, *([1] * len(shape)))
+    out = torch.from_numpy(vals).to(entry_device(device)).reshape(
+        4, *([1] * len(shape)))
     return out.expand(4, *shape) if shape else out
 
 
-def zeros(shape, device="cpu"):
-    return torch.zeros((4, *shape), dtype=torch.int32, device=device)
+def zeros(shape, device=None):
+    """int32 [4, *shape] zeros on `device`, CUDA device 0 unless named."""
+    return torch.zeros((4, *shape), dtype=torch.int32,
+                       device=entry_device(device))

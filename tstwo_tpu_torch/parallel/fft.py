@@ -164,7 +164,7 @@ def _get_sharded_fft(mesh: Mesh, log_n: int, tree, inverse: bool
            tree.root_coset.initial_index.value, tree.root_coset.log_size)
     fn = _SHARDED_FFT_CACHE.get(key)
     if fn is None or fn.mesh is not mesh:
-        line = domain_line_twiddles(log_n, tree, inverse)
+        line = domain_line_twiddles(log_n, tree, inverse, mesh.device)
         circle = circle_layer_twiddles(line[0])
         fn = _SHARDED_FFT_CACHE[key] = ShardedFft(mesh, log_n, line, circle,
                                                   inverse)

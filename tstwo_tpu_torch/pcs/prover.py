@@ -30,6 +30,7 @@ from ..poly.circle_poly import (CircleEvaluation, CirclePoly,
 from ..poly.twiddles import TwiddleTree
 from ..proof_of_work import grind
 from ..tracing import span
+from ..utils import mesh_device
 from ..vcs.ops import Blake2sMerkleOps
 from . import PcsConfig, TreeSubspan
 from .quotients import PointSample, compute_fri_quotients
@@ -127,11 +128,16 @@ class TreeBuilder:
         self.polys: List[CirclePoly] = []
 
     def extend_polys(self, columns: Sequence[CirclePoly]) -> TreeSubspan:
+        """Add polynomials to the tree, each on the scheme's device."""
+        device = self._scheme.device
         start = len(self.polys)
-        self.polys.extend(columns)
+        self.polys.extend(CirclePoly(p.coeffs.to(device)) for p in columns)
         return TreeSubspan(self.tree_index, start, len(self.polys))
 
     def extend_evals(self, columns: Sequence[CircleEvaluation]) -> TreeSubspan:
+        """Interpolate and add evaluations.  Each group of same-size
+        columns goes to the scheme's device first (one upload for a trace
+        made on the host), so the whole prove runs where the scheme does."""
         columns = list(columns)
         polys: List[Optional[CirclePoly]] = [None] * len(columns)
         with span("interpolation"):
@@ -141,7 +147,8 @@ class TreeBuilder:
             mesh = self._scheme.mesh
             for log_size, idxs in groups.items():
                 domain = columns[idxs[0]].domain
-                stacked = torch.stack([columns[i].values for i in idxs])
+                stacked = torch.stack([columns[i].values for i in idxs]).to(
+                    self._scheme.device)
                 if mesh is not None:
                     # the sharded inverse, then every rank gathers the
                     # coefficients: polynomials stay replicated
@@ -162,18 +169,17 @@ class TreeBuilder:
 
 class CommitmentSchemeProver:
     """Commits trees and opens them.  On one device, `device` holds every
-    column the scheme commits; with `mesh` (parallel/) the mesh decides
-    the device, and the whole prove runs point-sharded over its ranks with
-    the same proof as on one device, in either flavour.  `merkle_ops` is
-    the Merkle flavour (vcs/ops.py)."""
+    column the scheme commits: CUDA device 0 unless the caller names one
+    (`utils.entry_device`; `device="cpu"` for the CPU).  With `mesh`
+    (parallel/) the mesh decides the device, and the whole prove runs
+    point-sharded over its ranks with the same proof as on one device, in
+    either flavour.  `merkle_ops` is the Merkle flavour (vcs/ops.py)."""
 
     def __init__(self, config: PcsConfig, twiddles: TwiddleTree,
-                 device="cpu", merkle_ops=Blake2sMerkleOps, mesh=None):
-        if mesh is not None:
-            device = mesh.device
+                 device=None, merkle_ops=Blake2sMerkleOps, mesh=None):
         self.config = config
         self.twiddles = twiddles
-        self.device = torch.device(device)
+        self.device = mesh_device(mesh, device)
         self.merkle_ops = merkle_ops
         self.mesh = mesh
         self.trees: TreeVec = TreeVec()

@@ -27,7 +27,8 @@ from ..ops import cm31 as cm31_ops
 from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
 from ..poly.circle_poly import CircleEvaluation, SecureEvaluation
-from ..utils import bit_reverse_permutation, to_numpy_u32, to_torch_u32
+from ..utils import (bit_reverse_permutation, entry_device, to_numpy_u32,
+                     to_torch_u32)
 from .utils import TreeVec
 
 P = (1 << 31) - 1
@@ -126,7 +127,10 @@ def _domain_points_bitrev_np(initial_index: int, half_log_size: int
     return (full_x[perm].astype(np.uint32), full_y[perm].astype(np.uint32))
 
 
-def domain_points_bitrev(domain: CircleDomain, device="cpu"):
+def domain_points_bitrev(domain: CircleDomain, device=None):
+    """The domain's x and y in bit-reversed order, int32 [n] each, on
+    `device` (CUDA device 0 unless named)."""
+    device = entry_device(device)
     xs, ys = _domain_points_bitrev_np(domain.half_coset.initial_index.value,
                                       domain.half_coset.log_size)
     return to_torch_u32(xs, device), to_torch_u32(ys, device)
@@ -308,11 +312,15 @@ def _fri_answers_for_log_size(log_size, samples, random_coeff,
         return []
     # One pass over all query rows: the queried values form a
     # [K, n_queries] column matrix and the query points stand in for
-    # the domain points -- the prover's whole-domain accumulation.
+    # the domain points -- the prover's whole-domain accumulation.  This
+    # is the verifier's arithmetic on a few hundred host values: it runs
+    # on the CPU whatever device the prover used.
     cols = to_torch_u32(np.array([[v.value for v in r] for r in rows],
-                                 dtype=np.uint32).T)
-    xs = to_torch_u32(np.array([p.x.value for p in points], np.uint32))
-    ys = to_torch_u32(np.array([p.y.value for p in points], np.uint32))
+                                 dtype=np.uint32).T, "cpu")
+    xs = to_torch_u32(np.array([p.x.value for p in points], np.uint32),
+                      "cpu")
+    ys = to_torch_u32(np.array([p.y.value for p in points], np.uint32),
+                      "cpu")
     vals = to_numpy_u32(_accumulate_rows(cols, xs, ys, sample_batches,
                                          random_coeff))
     return [QM31.from_ints(vals[:, i].tolist())

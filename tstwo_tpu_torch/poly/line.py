@@ -13,7 +13,7 @@ import torch
 
 from ..circle import CirclePoint, Coset
 from ..fields import M31, QM31
-from ..utils import bit_reverse_list
+from ..utils import bit_reverse_list, entry_device
 
 
 @dataclass(frozen=True)
@@ -124,10 +124,11 @@ class LineEvaluation:
     mesh: Optional[object] = field(default=None, repr=False, compare=False)
 
     @staticmethod
-    def new_zero(domain: LineDomain, device="cpu") -> "LineEvaluation":
+    def new_zero(domain: LineDomain, device=None) -> "LineEvaluation":
+        """Zeros on `device`, CUDA device 0 unless named."""
         return LineEvaluation(
             domain, torch.zeros((4, domain.size()), dtype=torch.int32,
-                                device=device))
+                                device=entry_device(device)))
 
     def __len__(self) -> int:
         return self.domain.size()

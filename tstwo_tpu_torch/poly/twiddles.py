@@ -20,7 +20,7 @@ import torch
 
 from ..circle import Coset
 from ..ops import m31
-from ..utils import bit_reverse_permutation, to_torch_u32
+from ..utils import bit_reverse_permutation, entry_device, to_torch_u32
 
 P = (1 << 31) - 1
 
@@ -60,8 +60,10 @@ class TwiddleTree:
                                          compare=False)
 
     def layer_of_size(self, size: int, inverse: bool = False,
-                      device="cpu") -> torch.Tensor:
-        device = torch.device(device)
+                      device=None) -> torch.Tensor:
+        """The twiddle layer of `size` on `device` (CUDA device 0 unless
+        named), cached per device."""
+        device = entry_device(device)
         key = ("layer", size, inverse, str(device))
         hit = self._device.get(key)
         if hit is None:
@@ -117,9 +119,9 @@ def precompute_twiddles(coset: Coset) -> TwiddleTree:
 
 def domain_line_twiddles(domain_log_size: int, tree: TwiddleTree,
                          inverse: bool = False,
-                         device="cpu") -> List[torch.Tensor]:
-    """[t_1, ..., t_{n-1}] where t_l (size 2^(n-1-l)) drives fft layer l
-    (reference poly/utils.ts:78-99)."""
+                         device=None) -> List[torch.Tensor]:
+    """[t_1, ..., t_{n-1}] where t_l (size 2^(n-1-l)) drives fft layer l,
+    on `device`, CUDA device 0 unless named (reference poly/utils.ts:78-99)."""
     return [tree.layer_of_size(1 << (domain_log_size - 1 - l), inverse, device)
             for l in range(1, domain_log_size)]
 

@@ -208,8 +208,9 @@ def save_prover_checkpoint(path: str, scheme, channel) -> None:
         scheme.mesh.barrier()
 
 
-def load_prover_checkpoint(path: str, twiddles, device="cpu", mesh=None):
-    """Restore (scheme, channel) on `device`, or with `mesh` (parallel/)
+def load_prover_checkpoint(path: str, twiddles, device=None, mesh=None):
+    """Restore (scheme, channel) on `device` (CUDA device 0 unless the
+    caller names one, as `CommitmentSchemeProver`), or with `mesh` (parallel/)
     on the mesh's device with every column the mesh shards sliced to this
     rank's part; `twiddles` is the same TwiddleTree a fresh prove would
     precompute (deterministic from the domain sizes).

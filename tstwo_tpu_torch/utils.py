@@ -74,7 +74,12 @@ def to_torch_u32(arr, device="cpu"):
     """numpy uint32 array -> int32 tensor with the same bits, on `device`.
 
     M31 values (< 2^31) read the same either way; Blake2s words >= 2^31
-    become negative int32 bit-views."""
+    become negative int32 bit-views.
+
+    The one public callable whose `device` defaults to the CPU: it is the
+    numpy bridge (no JAX counterpart), computes nothing, and the port's
+    own callers always name the device.  Every other callable that places
+    host values on a device resolves `device=None` by `entry_device`."""
     import torch
 
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
@@ -82,10 +87,12 @@ def to_torch_u32(arr, device="cpu"):
 
 
 def entry_device(device=None):
-    """The device an entry point (`prove_*`, `generate_trace`) runs on:
-    CUDA device 0 unless the caller names one; `device="cpu"` asks for the
-    CPU.  Without a CUDA device the default raises: nothing steps down to
-    the CPU on its own."""
+    """The device an entry point runs on, and where any public callable
+    puts the data it makes from host values (`prove_*`, `generate_trace`,
+    `CommitmentSchemeProver`, `load_prover_checkpoint`, the LogUp and GKR
+    builders, the field and channel helpers): CUDA device 0 unless the
+    caller names one; `device="cpu"` asks for the CPU.  Without a CUDA
+    device the default raises: nothing steps down to the CPU on its own."""
     import torch
 
     if device is not None:

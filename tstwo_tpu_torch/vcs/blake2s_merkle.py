@@ -27,7 +27,7 @@ def hash_node(children: Optional[Tuple[bytes, bytes]],
 
 def commit_on_layer(log_size: int, prev_layer: Optional[torch.Tensor],
                     columns: Sequence[torch.Tensor],
-                    device="cpu") -> torch.Tensor:
+                    device=None) -> torch.Tensor:
     """Hash one Merkle layer on the columns' device.
 
     prev_layer: int32 [8, 2^(log+1)] digest words (word-major) of the child
