@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import blake2s as b2
-from ..utils import entry_device
+from ..utils import entry_device, upload
 
 _MASK = 0xFFFFFFFF
 
@@ -43,7 +43,7 @@ def upload_words(words, device=None) -> torch.Tensor:
     host = torch.from_numpy(arr.view(np.int32).copy())
     device = entry_device(device)
     if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
+        return upload(host.pin_memory(), device, non_blocking=True)
     return host.to(device)
 
 

@@ -34,7 +34,7 @@ from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
 from ..pcs import TreeSubspan
 from ..pcs.utils import TreeVec
-from ..utils import bit_reverse_permutation, to_torch_u32
+from ..utils import bit_reverse_permutation, to_torch_u32, upload
 from .expr import BaseExpr, SecureExpr
 from .logup import LogupAtRow, LookupElements, RelationEntry
 from .preprocessed import PreProcessedColumnId
@@ -280,8 +280,8 @@ def _shifted(col: torch.Tensor, trace_log: int, eval_log: int,
     """The mask of `col` at `offset` trace steps (offset 0 is `col`)."""
     if offset == 0:
         return BaseExpr(col)
-    perm = torch.from_numpy(_offset_perm(trace_log, eval_log, offset)).to(
-        device=col.device, dtype=torch.int64)
+    perm = upload(torch.from_numpy(
+        _offset_perm(trace_log, eval_log, offset)).to(torch.int64), col.device)
     return BaseExpr(col.index_select(-1, perm))
 
 

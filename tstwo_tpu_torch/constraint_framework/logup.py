@@ -29,7 +29,7 @@ from ..lookups.utils import Fraction
 from ..ops import qm31 as qm31_ops
 from ..ops.prefix_sum import inclusive_prefix_sum_bit_rev_circle
 from ..poly.circle_poly import CircleEvaluation
-from ..utils import entry_device
+from ..utils import entry_device, to_host_list
 
 P = (1 << 31) - 1
 
@@ -218,7 +218,7 @@ class LogupTraceGenerator:
         # claimed sum: exact coordinate-wise total; each coordinate sums
         # fewer than 2^32 values below 2^31 in int64, then one reduction
         # and one transfer
-        totals = (last.to(torch.int64).sum(dim=1) % P).tolist()
+        totals = to_host_list(last.to(torch.int64).sum(dim=1) % P)
         claimed_sum = QM31.from_ints(totals)
         cumsum_shift = claimed_sum.mul_m31(
             M31.from_int(1 << self.log_size).inverse())

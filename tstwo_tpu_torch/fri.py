@@ -34,7 +34,7 @@ from .poly.circle_poly import SecureEvaluation
 from .poly.twiddles import TwiddleTree
 from .queries import Queries, get_query_positions_by_log_size
 from .tracing import span
-from .utils import bit_reverse_index, to_numpy_u32
+from .utils import bit_reverse_index, to_numpy_u32, upload
 from .vcs import MerkleProver, MerkleVerificationError, MerkleVerifier
 from .vcs.prover import _to_host
 from .vcs.ops import Blake2sMerkleOps
@@ -209,8 +209,8 @@ def compute_decommitment_positions_and_witness_evals(
         vals = to_numpy_u32(gather_at(
             mesh, [([values], witness_positions, log, True)])[0])
     else:
-        idx = torch.tensor(witness_positions, dtype=torch.int64,
-                           device=values.device)
+        idx = upload(torch.tensor(witness_positions, dtype=torch.int64),
+                     values.device)
         vals = to_numpy_u32(values.index_select(-1, idx))
     return decommitment_positions, [QM31.from_ints(vals[:, k].tolist())
                                     for k in range(vals.shape[1])]
@@ -545,18 +545,22 @@ class FriProver:
         """Draw the queries and open every layer at them; also returns the
         query positions per column log size for the trace trees."""
         max_log = self.first_layer.max_column_log_size()
-        queries = Queries.generate(channel, max_log, self.config.n_queries)
-        positions = get_query_positions_by_log_size(
-            queries, set(self.first_layer.column_log_sizes()))
+        with span("queries"):
+            queries = Queries.generate(channel, max_log,
+                                       self.config.n_queries)
+            positions = get_query_positions_by_log_size(
+                queries, set(self.first_layer.column_log_sizes()))
         return self.decommit_on_queries(queries), positions
 
     def decommit_on_queries(self, queries: Queries) -> FriProof:
-        first = self.first_layer.decommit(queries)
+        with span("first_layer"):
+            first = self.first_layer.decommit(queries)
         inner = []
-        layer_queries = queries.fold(CIRCLE_TO_LINE_FOLD_STEP)
-        for layer in self.inner_layers:
-            inner.append(layer.decommit(layer_queries))
-            layer_queries = layer_queries.fold(FOLD_STEP)
+        with span("inner_layers"):
+            layer_queries = queries.fold(CIRCLE_TO_LINE_FOLD_STEP)
+            for layer in self.inner_layers:
+                inner.append(layer.decommit(layer_queries))
+                layer_queries = layer_queries.fold(FOLD_STEP)
         return FriProof(first, inner, self.last_layer_poly)
 
 

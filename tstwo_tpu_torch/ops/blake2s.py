@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..utils import as_int32_bits, entry_device
+from ..utils import as_int32_bits, entry_device, to_host_list, upload
 
 IV = np.array([
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -333,7 +333,7 @@ def grind_hit_plain(digest_words, start: int, count: int, pow_bits: int,
     device = entry_device(device)
     nonces = start + torch.arange(count, dtype=torch.int64, device=device)
     msg = torch.cat([
-        torch.from_numpy(words.astype(np.int64)).to(device)[:, None]
+        upload(torch.from_numpy(words.astype(np.int64)), device)[:, None]
         .expand(8, count), (nonces & _MASK)[None, :], (nonces >> 32)[None, :]])
     hit = grind_trailing_zeros(
         hash_words_major_plain(msg, GRIND_BYTE_LEN)) >= pow_bits
@@ -359,15 +359,15 @@ def grind_hit_cuda(digest_words, start: int, count: int, pow_bits: int,
 def grind_batch_plain(digest_words, start: int, count: int, pow_bits: int,
                       device=None) -> int:
     """`grind_hit_plain` read back: the first hit, or -1."""
-    return int(grind_hit_plain(digest_words, start, count, pow_bits,
-                               device).item())
+    return to_host_list(grind_hit_plain(digest_words, start, count,
+                                        pow_bits, device))[0]
 
 
 def grind_batch_cuda(digest_words, start: int, count: int, pow_bits: int,
                      device) -> int:
     """`grind_hit_cuda` and an 8-byte read of the least hit, or -1."""
-    return int(grind_hit_cuda(digest_words, start, count, pow_bits,
-                              device).item())
+    return to_host_list(grind_hit_cuda(digest_words, start, count,
+                                       pow_bits, device))[0]
 
 
 def grind_batch(digest_words, start: int, count: int, pow_bits: int,
@@ -429,7 +429,7 @@ def transcript_plain(digest: torch.Tensor, n_sent: Optional[torch.Tensor]
                                         32 + msg_bytes)[:, 0]
         count = 0
     else:
-        lo, hi = (int(w) & _MASK for w in n_sent.tolist())
+        lo, hi = (int(w) & _MASK for w in to_host_list(n_sent))
         count = lo | hi << 32
     d = digest.to(torch.int64) & _MASK
     draws = []

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..utils import bit_reverse_permutation
+from ..utils import bit_reverse_permutation, upload
 from . import m31
 
 
@@ -29,7 +29,8 @@ def bit_reverse(values: torch.Tensor, log_size: int) -> torch.Tensor:
         raise ValueError("size mismatch")
     if log_size <= 1:
         return values
-    perm = torch.from_numpy(bit_reverse_permutation(log_size)).to(values.device)
+    perm = upload(torch.from_numpy(bit_reverse_permutation(log_size)),
+                  values.device)
     return values.index_select(-1, perm)
 
 

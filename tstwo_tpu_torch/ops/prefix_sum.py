@@ -14,6 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import upload
 from . import m31
 from .m31 import P
 
@@ -51,7 +52,7 @@ def inclusive_prefix_sum_bit_rev_circle(x: torch.Tensor,
                                         log_size: int) -> torch.Tensor:
     """Inclusive prefix sum *in coset order* of a column stored in
     bit-reversed circle-domain order (any leading dims; last axis = rows)."""
-    perm, inv = (torch.from_numpy(p).to(device=x.device, dtype=torch.int64)
+    perm, inv = (upload(torch.from_numpy(p).to(torch.int64), x.device)
                  for p in _coset_order_perms(log_size))
     summed = inclusive_prefix_sum(x.index_select(-1, perm))
     return summed.index_select(-1, inv)

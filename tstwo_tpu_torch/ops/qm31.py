@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import entry_device
+from ..utils import entry_device, upload
 from . import cm31, m31
 from .m31 import add_w, narrow, sub_w, wide
 
@@ -104,7 +104,7 @@ def scalar(q, shape=(), device=None):
     [4, *shape] (or [4] when shape is empty)."""
     vals = np.asarray(q.to_ints() if hasattr(q, "to_ints") else q,
                       dtype=np.int64).astype(np.int32)
-    out = torch.from_numpy(vals).to(entry_device(device)).reshape(
+    out = upload(torch.from_numpy(vals), entry_device(device)).reshape(
         4, *([1] * len(shape)))
     return out.expand(4, *shape) if shape else out
 

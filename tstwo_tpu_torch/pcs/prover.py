@@ -164,7 +164,8 @@ class TreeBuilder:
         return self.extend_polys(polys)
 
     def commit(self, channel) -> None:
-        self._scheme._commit(self.polys, channel)
+        with span("commit"):
+            self._scheme._commit(self.polys, channel)
 
 
 class CommitmentSchemeProver:
@@ -234,9 +235,11 @@ class CommitmentSchemeProver:
                 [v for tree in sampled_values for col in tree for v in col])
 
         # 2. DEEP quotients.
-        columns = self.evaluations().flatten()
-        flat_samples = samples.flatten()
-        random_coeff = channel.draw_felt()
+        with span("flatten_evaluations"):
+            columns = self.evaluations().flatten()
+            flat_samples = samples.flatten()
+        with span("quotient_coeff_draw"):
+            random_coeff = channel.draw_felt()
         with span("fri_quotients"):
             quotients = compute_fri_quotients(
                 columns, flat_samples, random_coeff,
@@ -252,16 +255,19 @@ class CommitmentSchemeProver:
         with span("grind"):
             proof_of_work = grind(channel, self.config.pow_bits,
                                   device=self.device)
-        channel.mix_u64(proof_of_work)
+        with span("mix_u64"):
+            channel.mix_u64(proof_of_work)
 
         # 5. FRI decommitment + Merkle decommitments.
         with span("decommitment"):
-            fri_proof, query_positions_per_log_size = fri_prover.decommit(
-                channel)
+            with span("fri_decommit"):
+                fri_proof, query_positions_per_log_size = \
+                    fri_prover.decommit(channel)
             queried_values = TreeVec()
             decommitments = TreeVec()
             for tree in self.trees:
-                values, dec = tree.decommit(query_positions_per_log_size)
+                with span("tree_decommit"):
+                    values, dec = tree.decommit(query_positions_per_log_size)
                 queried_values.append(values)
                 decommitments.append(dec)
 

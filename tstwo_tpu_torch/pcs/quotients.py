@@ -28,7 +28,7 @@ from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
 from ..poly.circle_poly import CircleEvaluation, SecureEvaluation
 from ..utils import (bit_reverse_permutation, entry_device, to_numpy_u32,
-                     to_torch_u32)
+                     to_torch_u32, upload)
 from .utils import TreeVec
 
 P = (1 << 31) - 1
@@ -138,8 +138,8 @@ def domain_points_bitrev(domain: CircleDomain, device=None):
 
 def _wide_scalar(values, device) -> torch.Tensor:
     """Host field coordinates -> int64 [len(values), 1] for broadcasting."""
-    return torch.tensor([int(v) for v in values], dtype=torch.int64,
-                        device=device)[:, None]
+    return upload(torch.tensor([int(v) for v in values], dtype=torch.int64),
+                  device)[:, None]
 
 
 def _accumulate_rows(columns: torch.Tensor, xs: torch.Tensor,

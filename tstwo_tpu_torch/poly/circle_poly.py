@@ -20,7 +20,7 @@ from ..fields import M31, QM31
 from ..ops import fft as fft_ops
 from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
-from ..utils import to_numpy_u32, to_torch_u32
+from ..utils import to_host_list, to_numpy_u32, to_torch_u32
 from .twiddles import TwiddleTree, precompute_twiddles
 
 MAX_CIRCLE_DOMAIN_LOG_SIZE = 30
@@ -203,7 +203,7 @@ class SecureEvaluation:
         return [self.values[i] for i in range(4)]
 
     def at(self, i: int) -> QM31:
-        return QM31.from_ints([int(v) for v in self.values[:, i].tolist()])
+        return QM31.from_ints(to_host_list(self.values[:, i]))
 
 
 class CosetSubEvaluation:
@@ -246,7 +246,7 @@ def eval_columns_at_point(coeff_stack: torch.Tensor, point: CirclePoint,
     (one fold on the columns' device, one transfer of k values)."""
     if log_size == 0:
         return [QM31.from_base(M31(int(v)))
-                for v in coeff_stack[:, 0].tolist()]
+                for v in to_host_list(coeff_stack[:, 0])]
     mappings = _mappings_for_point(point, log_size, QM31.one())
     factors = [qm31_ops.scalar(f, device=coeff_stack.device) for f in mappings]
     out = to_numpy_u32(_fold_columns(coeff_stack, factors))

@@ -13,7 +13,8 @@ import torch
 
 from ..circle import CirclePoint, Coset
 from ..fields import M31, QM31
-from ..utils import bit_reverse_list, entry_device
+from ..utils import (bit_reverse_list, entry_device, to_host_list,
+                     to_numpy_u32)
 
 
 @dataclass(frozen=True)
@@ -134,10 +135,10 @@ class LineEvaluation:
         return self.domain.size()
 
     def at(self, i: int) -> QM31:
-        return QM31.from_ints([int(self.values[c, i]) for c in range(4)])
+        return QM31.from_ints(to_host_list(self.values[:, i]))
 
     def to_qm31_list(self) -> List[QM31]:
-        arr = self.values.cpu().numpy()
+        arr = to_numpy_u32(self.values)
         return [QM31.from_ints(arr[:, i].tolist()) for i in range(arr.shape[1])]
 
     def interpolate(self) -> LinePoly:

@@ -13,19 +13,15 @@ GrandProduct and one LogUpGeneric instance of 2^log_n random values each,
 or the basic AIR of 2^log_n rows under the Poseidon252 flavour;
 `--pow-bits` and `--n-queries` set the PcsConfig of every path but GKR
 (default: pow_bits 5, 3 queries, log blowup 1).
-After one warm prove it runs two more: one under synchronised tracing
-spans (host wall time per prover phase, device work included), and one
-under torch.profiler (device time by kernel, and the device's busy share
-of the prove's wall time).  It also counts, per warm prove, the launches
-of each hand kernel (`kernels.LAUNCHES`), in all and inside
-`MerkleProver.commit` (of either flavour), and from the profile the `cat`, `pad`,
-`contiguous` and `clone` calls made inside `MerkleProver.commit` with
-their device time, and the span of those commits on the device's timeline
-(first to last kernel of each).  Every call of `evaluate_values` and
-`interpolate_values` (the CFFT's callers) runs under a range too, and
-every `aten::` operator that starts inside one is counted
-(`ops_in_cfft_callers`): a pad before or a product after the transform
-would show there.  Prints one JSON object.  Needs a CUDA device.
+After one warm prove it runs three more: one plain, one under the span tree
+(`tracing.enable(sync=False)`, the prove under `tracing.request(0)`), and
+one under torch.profiler.  Prints one JSON object: the walls, the span tree
+(one row per path of span names, in the order they first open: calls, host
+ms, self ms (host less the child spans), device ms from the spans' CUDA
+events, hand-kernel launches, and the uploads and fetches with their
+bytes, each summed over the span and its children), the hand-kernel
+launches of the plain prove (`kernels.LAUNCHES`), and the profile's top
+kernels by device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,34 +29,39 @@ import argparse
 import json
 import subprocess
 import time
+from typing import Dict, List
+
+COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes")
 
 
-COMMIT_RANGE = "MerkleProver.commit"
-CFFT_RANGE = "circle_poly.cfft_caller"
-GLUE_OPS = ("aten::cat", "aten::pad", "aten::contiguous", "aten::clone")
-HAND_KERNEL_TAGS = ("cfft", "blake2s", "deinterleave", "m31_mul", "merkle",
-                    "hades", "grind")
-
-
-def ops_inside(events, range_name: str, op_names) -> dict:
-    """Calls of the CPU ops `op_names` that start inside a profiler range
-    called `range_name`, with the device time of what they launched:
-    {op: {"calls": n, "device_ms": t}}.  `op_names` None: every `aten::`
-    operator of the profile."""
-    spans = sorted((e.time_range.start, e.time_range.end, e.thread)
-                   for e in events if e.name == range_name)
-    if op_names is None:  # every aten operator
-        op_names = sorted({e.name for e in events
-                           if e.name.startswith("aten::")})
-    out = {name: {"calls": 0, "device_ms": 0.0} for name in op_names}
-    for e in events:
-        if e.name not in out:
-            continue
-        at = e.time_range.start
-        if any(s <= at <= t and thread == e.thread for s, t, thread in spans):
-            out[e.name]["calls"] += 1
-            out[e.name]["device_ms"] += e.device_time_total / 1e3
-    return out
+def span_table(records: List[dict]) -> List[dict]:
+    """The span tree's records summed by path of span names."""
+    paths: List[str] = []
+    rows: Dict[str, dict] = {}
+    for rec in records:
+        parent = rec["parent"]
+        path = rec["name"] if parent is None else \
+            f"{paths[parent]} > {rec['name']}"
+        paths.append(path)
+        host = rec["t1"] - rec["t0"]
+        device = (rec["device_t1"] - rec["device_t0"]
+                  if rec["device_t0"] is not None else 0.0)
+        row = rows.setdefault(path, {
+            "span": path, "calls": 0, "host_ms": 0.0, "self_ms": 0.0,
+            "device_ms": 0.0, "launches": 0, **dict.fromkeys(COUNTERS, 0)})
+        row["calls"] += 1
+        row["host_ms"] += 1e3 * host
+        row["self_ms"] += 1e3 * host
+        row["device_ms"] += 1e3 * device
+        row["launches"] += rec["launches"]
+        if parent is not None:
+            rows[paths[parent]]["self_ms"] -= 1e3 * host
+        at = len(paths) - 1
+        while at is not None:  # a span's counts go to it and its ancestors
+            for name in COUNTERS:
+                rows[paths[at]][name] += rec["counts"].get(name, 0)
+            at = records[at]["parent"]
+    return list(rows.values())
 
 
 def main(argv=None) -> None:
@@ -76,7 +77,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from . import kernels, tracing
     from .channel.blake2s import Blake2sChannel
@@ -84,11 +85,9 @@ def main(argv=None) -> None:
     from .examples.logup_lookup import prove_logup_lookup
     from .examples.wide_fibonacci import prove_wide_fibonacci
     from .fri import FriConfig
-    from .pcs import PcsConfig
     from .lookups.gkr import GRAND_PRODUCT, LOGUP_GENERIC, Layer, prove_batch
     from .lookups.mle import Mle
-    from .vcs.poseidon252_merkle import Poseidon252MerkleProver
-    from .vcs.prover import MerkleProver
+    from .pcs import PcsConfig
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove needs a CUDA device")
@@ -108,90 +107,44 @@ def main(argv=None) -> None:
     def prove() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if args.path == "wide_fibonacci":
-            prove_wide_fibonacci(args.log_n, args.seq, config, seed=0,
-                                 device=device)
-        elif args.path == "logup":
-            prove_logup_lookup(args.log_n, config, seed=0, device=device)
-        elif args.path == "poseidon":
-            prove_basic_air(args.log_n, config, device=device,
-                            flavor="poseidon252")
-        else:
-            prove_batch(Blake2sChannel(), gkr_layers)
-        torch.cuda.synchronize()
+        with tracing.request(0):
+            if args.path == "wide_fibonacci":
+                prove_wide_fibonacci(args.log_n, args.seq, config, seed=0,
+                                     device=device)
+            elif args.path == "logup":
+                prove_logup_lookup(args.log_n, config, seed=0, device=device)
+            elif args.path == "poseidon":
+                prove_basic_air(args.log_n, config, device=device,
+                                flavor="poseidon252")
+            else:
+                prove_batch(Blake2sChannel(), gkr_layers)
+            torch.cuda.synchronize()
         return time.perf_counter() - t0
-
-    # every Merkle commit of the prove runs under a profiler range, and its
-    # hand-kernel launches are counted apart
-    in_commit = dict.fromkeys(kernels.LAUNCHES, 0)
-
-    def counted(commit):
-        def counted_commit(*a, **kw):
-            before = dict(kernels.LAUNCHES)
-            with record_function(COMMIT_RANGE):
-                tree = commit(*a, **kw)
-            for name, count in kernels.LAUNCHES.items():
-                in_commit[name] = in_commit.get(name, 0) + count - before[name]
-            return tree
-        return staticmethod(counted_commit)
-
-    for prover in (MerkleProver, Poseidon252MerkleProver):
-        prover.commit = counted(prover.commit)
-
-    # the CFFT's callers run under a range as well, wherever they were
-    # imported by name
-    from . import constraint_framework
-    from .pcs import prover as pcs_prover
-    from .poly import circle_poly
-
-    def ranged(fn):
-        def call(*a, **kw):
-            with record_function(CFFT_RANGE):
-                return fn(*a, **kw)
-        return call
-
-    for name in ("evaluate_values", "interpolate_values"):
-        wrapped = ranged(getattr(circle_poly, name))
-        for module in (circle_poly, pcs_prover, constraint_framework):
-            if hasattr(module, name):
-                setattr(module, name, wrapped)
 
     warm_s = prove()
     kernels.reset_launches()
-    in_commit = dict.fromkeys(kernels.LAUNCHES, 0)
     plain_s = prove()
     launches = dict(kernels.LAUNCHES)
-    launches_in_commit = dict(in_commit)
 
     tracing.reset()
-    tracing.enable()
+    tracing.enable(sync=False)
     try:
-        spans_wall_s = prove()
+        tree_s = prove()
+        records = tracing.records()
     finally:
         tracing.disable()
-    spans = tracing.totals()
+        tracing.reset()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_s = prove()
     # device-side events only (a launching CPU op also reports the time of
     # the kernels it launched)
-    # (the two ranges also have device-side events, first to last kernel
-    # of each commit or CFFT caller: reported apart, they are no kernels)
-    averages = [e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0]
-    commit_span_us = sum(e.self_device_time_total for e in averages
-                         if e.key == COMMIT_RANGE)
-    cfft_span_us = sum(e.self_device_time_total for e in averages
-                       if e.key == CFFT_RANGE)
-    by_kernel = [(e.key, e.self_device_time_total, e.count)
-                 for e in averages if e.key not in (COMMIT_RANGE, CFFT_RANGE)]
-    device_us = sum(t for _, t, _ in by_kernel)
-    by_kernel.sort(key=lambda k: -k[1])
-    hand = [{"name": name[:60], "ms": t / 1e3, "calls": n}
-            for name, t, n in by_kernel
-            if any(tag in name for tag in HAND_KERNEL_TAGS)]
+    by_kernel = sorted(((e.key, e.self_device_time_total, e.count)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0),
+                       key=lambda k: -k[1])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "path": args.path,
@@ -203,23 +156,12 @@ def main(argv=None) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=False).stdout.strip(),
         "prove_s": {"warm_up": warm_s, "plain": plain_s,
-                    "synced_spans": spans_wall_s, "profiled": profiled_s},
-        "spans_s": dict(sorted(spans.items(), key=lambda kv: -kv[1])),
-        "profiled_device_busy_s": device_us / 1e6,
-        "profiled_device_busy_share": device_us / 1e6 / profiled_s,
+                    "span_tree": tree_s, "profiled": profiled_s},
+        "spans": span_table(records),
+        "launches_per_prove": launches,
         "top_device_kernels": [
             {"name": name[:90], "ms": t / 1e3, "calls": n}
             for name, t, n in by_kernel[:args.top]],
-        "hand_kernels_profiled": hand,
-        "launches_per_prove": launches,
-        "launches_in_merkle_commit": launches_in_commit,
-        "merkle_commit_device_span_ms": commit_span_us / 1e3,
-        "cfft_callers_device_span_ms": cfft_span_us / 1e3,
-        "ops_in_merkle_commit": ops_inside(prof.events(), COMMIT_RANGE,
-                                           GLUE_OPS),
-        "ops_in_cfft_callers": {
-            op: v for op, v in ops_inside(prof.events(), CFFT_RANGE,
-                                          None).items() if v["calls"]},
     }, indent=1))
 
 

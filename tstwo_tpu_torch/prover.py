@@ -17,6 +17,7 @@ from .fields import QM31, SECURE_EXTENSION_DEGREE
 from .pcs.prover import CommitmentSchemeProof, CommitmentSchemeProver
 from .pcs.utils import TreeVec
 from .pcs.verifier import CommitmentSchemeVerifier, VerificationError
+from .tracing import span
 
 
 class ProvingError(Exception):
@@ -83,14 +84,18 @@ class StarkProof:
 
 def prove(components: List, channel,
           commitment_scheme: CommitmentSchemeProver) -> StarkProof:
+    with span("prove"):
+        return _prove(components, channel, commitment_scheme)
+
+
+def _prove(components: List, channel,
+           commitment_scheme: CommitmentSchemeProver) -> StarkProof:
     n_preprocessed_columns = len(
         commitment_scheme.trees[PREPROCESSED_TRACE_IDX].polynomials)
     component_provers = ComponentProvers(components, n_preprocessed_columns)
     trace = commitment_scheme.trace()
 
     # Evaluate and commit the composition polynomial.
-    from .tracing import span
-
     with span("channel_sync"):
         # the draw forces the lazy device digest (and with it the queued
         # commit-phase device work) to settle -- wall time here is the
@@ -106,7 +111,8 @@ def prove(components: List, channel,
     # OODS point and mask sample points.
     with span("channel_sync"):
         oods_point = CirclePoint.get_random_point(channel)
-    sample_points = component_provers.mask_points(oods_point)
+    with span("mask_points"):
+        sample_points = component_provers.mask_points(oods_point)
     sample_points.append([[oods_point]] * SECURE_EXTENSION_DEGREE)
 
     proof = StarkProof(commitment_scheme.prove_values(sample_points, channel))

@@ -8,6 +8,8 @@ from typing import List, Sequence
 
 import numpy as np
 
+from .tracing import count, counting, span
+
 
 def bit_reverse_index(i: int, log_size: int) -> int:
     """Reverse the low `log_size` bits of i (reference utils.ts:15-22)."""
@@ -83,7 +85,31 @@ def to_torch_u32(arr, device="cpu"):
     import torch
 
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return upload(torch.from_numpy(a.view(np.int32).copy()), device)
+
+
+_TRANSFER_COUNTERS = {"upload": ("upload_bytes", "uploads"),
+                      "fetch": ("fetch_bytes", "fetches")}
+
+
+def _count_transfer(kind: str, t, device) -> None:
+    """Count a copy of tensor `t` between the host and `device`, `kind`
+    "upload" or "fetch": its bytes and one call.  Nothing for the CPU, or
+    with the counters off."""
+    import torch
+
+    if counting() and torch.device(device).type != "cpu":
+        nbytes, calls = _TRANSFER_COUNTERS[kind]
+        count(nbytes, t.numel() * t.element_size())
+        count(calls, 1)
+
+
+def upload(host, device, non_blocking: bool = False):
+    """The host tensor `host` on `device`.  A copy to a device other than
+    the CPU is an upload, counted in `upload_bytes` and `uploads`
+    (`tracing.count`)."""
+    _count_transfer("upload", host, device)
+    return host.to(device, non_blocking=non_blocking)
 
 
 def entry_device(device=None):
@@ -134,8 +160,21 @@ def to_host(x) -> np.ndarray:
 
 
 def to_numpy_u32(t) -> np.ndarray:
-    """int32 tensor (any device) -> numpy uint32 array with the same bits."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+    """int32 tensor (any device) -> numpy uint32 array with the same bits.
+    Runs under a `fetch` span: from a device, its host time is the wait
+    for the stream to drain and the copy, counted in `fetch_bytes` and
+    `fetches`."""
+    with span("fetch"):
+        _count_transfer("fetch", t, t.device)
+        return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def to_host_list(t) -> list:
+    """`t.tolist()` under a `fetch` span, counted as `to_numpy_u32` counts
+    a read from a device."""
+    with span("fetch"):
+        _count_transfer("fetch", t, t.device)
+        return t.tolist()
 
 
 def as_int32_bits(x):

@@ -15,8 +15,9 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..fields import M31
+from ..tracing import span
 from ..ops.blake2s import TAIL_LOG, digest_words_to_bytes, merkle_tail
-from ..utils import to_numpy_u32
+from ..utils import to_numpy_u32, upload
 from .blake2s_merkle import commit_on_layer
 from .utils import Peekable, next_decommitment_node
 
@@ -102,7 +103,7 @@ def plan_decommitment(queries_per_log_size: Mapping[int, Sequence[int]],
 def _gather(cols: Sequence[torch.Tensor], idxs: Sequence[int]):
     """Rows of every column entry at `idxs`, as one device tensor
     [n_columns, len(idxs)]."""
-    idx = torch.tensor(idxs, dtype=torch.int64, device=cols[0].device)
+    idx = upload(torch.tensor(idxs, dtype=torch.int64), cols[0].device)
     return torch.cat([(c if c.ndim == 2 else c[None, :]).index_select(-1, idx)
                       for c in cols], dim=0)
 
@@ -195,9 +196,12 @@ class MerkleProver:
         """Witness assembly (reference vcs/prover.ts:32-109).  Entries of
         `columns` may be single columns or [C, n] stacks; `log_sizes`, if
         given, are their log sizes (the sharded tree needs them)."""
-        plans = plan_decommitment(queries_per_log_size, len(self.layers),
-                                  columns, log_sizes)
-        return self._assemble(plans, self._witness_parts(plans))
+        with span("plan"):
+            plans = plan_decommitment(queries_per_log_size,
+                                      len(self.layers), columns, log_sizes)
+        parts = self._witness_parts(plans)
+        with span("assemble"):
+            return self._assemble(plans, parts)
 
     def _witness_parts(self, plans):
         """Every hash and value the witness needs, gathered on the device
