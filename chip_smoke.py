@@ -119,6 +119,8 @@ REPLACES = {
     "hades_permutation": "tstwo_tpu/ops/poseidon252.py:198 (jitted program)",
     "poseidon_merkle_layer": "tstwo_tpu/vcs/poseidon252_merkle.py:55 "
                              "(jitted program)",
+    "constraint_eval": "tstwo_tpu/constraint_framework/__init__.py:545 "
+                       "_domain_kernel (jitted program)",
 }
 # One H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device memory; 67
 # TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x 2 (a
@@ -742,6 +744,11 @@ def main() -> None:
     grind_rates(device)
     counts["blake2s_grind"] = secure_prove(device)["blake2s_grind"]
 
+    # 8b. constraint programs: the kernel against the plain executor, and
+    # the 96-bit 2^20 prove's composition against the eager evaluator
+    counts["constraint_eval"] = constraint_eval_phase(device, rows)[
+        "constraint_eval"]
+
     # 9. the roofline probes: the M31 probe kernels' path
     launches = roofline(device)
     counts.update(m31_mul=launches["m31_mul"],
@@ -774,7 +781,7 @@ def main() -> None:
 # proves forbid it, the 96-bit prove requires it beside these.
 MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
                      "merkle_layer", "merkle_tail", "deinterleave",
-                     "blake2s_transcript")
+                     "blake2s_transcript", "constraint_eval")
 SECURE_POW_BITS, SECURE_QUERIES = 26, 70  # stwo-cairo's secure_pcs_config
 
 
@@ -1314,6 +1321,272 @@ def secure_prove(device) -> dict:
     return launches
 
 
+class _Offsets:
+    """An AIR of masks at offsets -1, 1 and 2, constants and a QM31
+    product, on a domain twice the trace's."""
+
+    def __init__(self, log: int):
+        self.log = log
+
+    def log_size(self):
+        return self.log
+
+    def max_constraint_log_degree_bound(self):
+        return self.log + 1
+
+    def kernel_cache_key(self):
+        return None
+
+    def evaluate(self, ev):
+        from tstwo_tpu_torch.fields import QM31
+
+        a, b, c, d = ev.next_interaction_mask(1, [0, -1, 1, 2])
+        e = ev.next_trace_mask()
+        ev.add_constraint(a * b - c + d * e)
+        ev.add_constraint((a - 5) * QM31.from_ints([1, 2, 3, 4]) + e)
+        ev.add_constraint(-(c * c) + 7)
+
+
+def constraint_eval_phase(device, rows: list, log_n: int = 20,
+                          columns: int = 100, config=None) -> dict:
+    """Phase 8b: constraint programs (constraint_framework/program.py) on
+    the card.  `constraint_eval` against the plain executor, bit for bit:
+    wide Fibonacci 2^21 x 100 (each rows-per-thread variant, timed), the
+    LogUp AIR at 2^21 in both `pairs` modes (offset -1 masks, secure
+    parameters, a claimed sum), an AIR of masks at -1, 1, 2 and tile edges
+    at 2^2-2^9; the wide Fibonacci row of the kernel table beside
+    the eager DomainEvaluator's time.  Then wide Fibonacci 2^20 x 100 at 96
+    bits, proved twice: the warm prove launches `constraint_eval` once,
+    lowers nothing, runs no DomainEvaluator, and its composition
+    accumulation equals the eager DomainEvaluator's on the same card
+    columns.  Returns the launch counts of the proves.  (`log_n`,
+    `columns`, `config`: the prove's trace, and of the wide Fibonacci row
+    log_n + 1; smaller only to rehearse the phase off the card.)"""
+    import numpy as np
+    import torch
+
+    from tstwo_tpu_torch import constraint_framework as cf
+    from tstwo_tpu_torch import kernels, tracing
+    from tstwo_tpu_torch.constraint_framework.logup import LookupElements
+    from tstwo_tpu_torch.constraint_framework.program import lower
+    from tstwo_tpu_torch.constraints import \
+        coset_vanishing_denominator_inverses_bitrev
+    from tstwo_tpu_torch.examples.logup_lookup import LookupEval
+    from tstwo_tpu_torch.examples.wide_fibonacci import (
+        WideFibonacciEval, prove_wide_fibonacci, verify_wide_fibonacci)
+    from tstwo_tpu_torch.fields import M31, QM31
+    from tstwo_tpu_torch.fri import FriConfig
+    from tstwo_tpu_torch.measure_roofline import time_call, time_ms
+    from tstwo_tpu_torch.ops import constraint_eval as ce
+    from tstwo_tpu_torch.ops import m31
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    rng = np.random.default_rng(18)
+
+    def qm31s(k):
+        return [QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+                for _ in range(k)]
+
+    def setup(ev, t, e, params=(), claimed=None):
+        """The program, random card columns, its scalars, an accumulator."""
+        program = lower(ev, t, e)
+        counts = list(program.columns) + [0] * (2 - len(program.columns))
+        stacks = [to_torch_u32(rng.integers(0, P, (c, 1 << e), dtype=np.int64)
+                               .astype(np.uint32), device) if c else None
+                  for c in counts]
+        shift = (claimed or QM31.zero()).mul_m31(
+            M31.from_int(1 << t).inverse())
+        scalars = to_torch_u32(program.scalars(
+            qm31s(program.n_constraints), list(params), shift).view(np.uint32),
+            device)
+        code = program.device_code(device)
+        return program, code, stacks, scalars
+
+    def run(program, code, stacks, scalars, acc, rows_per_thread=0):
+        ce.evaluate_cuda(code, program.n_slots, stacks, scalars,
+                         program.denom_off, program.trace_log,
+                         program.eval_log, acc, rows_per_thread)
+        return acc
+
+    def plain(program, code, stacks, scalars):
+        return ce.evaluate_plain(code, program.n_slots, stacks, scalars,
+                                 program.denom_off, program.trace_log,
+                                 program.eval_log)
+
+    def exact(name, program, code, stacks, scalars, rows_per_thread=0):
+        acc = torch.zeros((4, 1 << program.eval_log), dtype=torch.int32,
+                          device=device)
+        got = run(program, code, stacks, scalars, acc, rows_per_thread)
+        err = max_abs_err(got, plain(program, code, stacks, scalars))
+        if err:
+            fail(f"constraint_eval {name} differs from the plain executor "
+                 f"(max_abs_err {err})")
+        return acc
+
+    t0 = time.perf_counter()
+    n_checks = 0
+    # tile edges and the same-domain offsets
+    for log in (2, 5, 9):
+        exact(f"offsets 2^{log}", *setup(_Offsets(log - 1), log - 1, log))
+        exact(f"wide_fib 2^{log}", *setup(WideFibonacciEval(log - 1, 6),
+                                          log - 1, log))
+        n_checks += 2
+    # LogUp: offset -1 masks, secure parameters, a claimed sum
+    for pairs in (True, False):
+        z, alpha = qm31s(2)
+        ev = LookupEval(log_n, LookupElements(z, alpha, 1), pairs)
+        info = cf.InfoEvaluator(log_n)
+        ev.evaluate(info)
+        args = setup(ev, log_n, log_n + 1, info.secure_params, qm31s(1)[0])
+        exact(f"logup pairs={pairs}", *args)
+        acc = torch.zeros((4, 2 << log_n), dtype=torch.int32, device=device)
+        timing = time_call(lambda: run(*args, acc))
+        print(f"  constraint_eval logup 2^{log_n + 1} pairs={pairs}: "
+              f"{args[0].n_constraints} constraints, {len(args[0].code)} "
+              f"instructions, {args[0].n_slots} slots, "
+              f"{timing['ms']:.4f} ms (cold {timing['cold_ms']:.4f} ms)",
+              flush=True)
+        n_checks += 1
+    # wide Fibonacci 2^21 x 100: each rows-per-thread variant
+    ev = WideFibonacciEval(log_n, columns)
+    program, code, stacks, scalars = args = setup(ev, log_n, log_n + 1)
+    variants = {}
+    for rpt in (1, 2, 4, 8):
+        exact(f"wide_fib rows_per_thread={rpt}", *args, rows_per_thread=rpt)
+        acc = torch.zeros((4, 2 << log_n), dtype=torch.int32, device=device)
+        variants[rpt] = time_ms(lambda: run(*args, acc, rpt))
+        n_checks += 1
+    print(f"  constraint_eval wide_fib 2^{log_n + 1} x {columns} ms by rows "
+          f"per thread: {json.dumps(variants)}", flush=True)
+    acc = torch.zeros((4, 2 << log_n), dtype=torch.int32, device=device)
+    timing = time_call(lambda: run(*args, acc))
+    plain_ms = time_ms(lambda: plain(*args))
+    # the eager path this replaces, on the same card columns
+    coeffs = scalars[:program.param_off].view(-1, 4)
+    dinv = to_torch_u32(coset_vanishing_denominator_inverses_bitrev(
+        log_n, log_n + 1), device)
+
+    def eager():
+        dom = cf.DomainEvaluator([[], [c for c in stacks[1]]], log_n,
+                                 log_n + 1, coeffs,
+                                 scalars[program.shift_off:
+                                         program.shift_off + 4], None)
+        ev.evaluate(dom)
+        return m31.mul(dom.row_res.arr, dinv[None, :])
+
+    acc.zero_()
+    if max_abs_err(run(*args, acc), eager()):
+        fail(f"constraint_eval wide_fib 2^{log_n + 1} x {columns} differs "
+             f"from the eager DomainEvaluator")
+    eager_ms = time_ms(eager)
+    n_ops = program.ops_per_row() << (log_n + 1)
+    n_bytes = (4 * columns + 2 * 16) << (log_n + 1)
+    by_ops, by_bytes = n_ops / INT32_OPS_PER_S * 1e3, \
+        n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(by_ops, by_bytes)
+    shape = f"[{columns},2^{log_n + 1}] wide_fib"
+    rows.append({"name": "constraint_eval", "shape": shape,
+                 "route": "cuda", "source": CSRC + "constraint_eval.cu",
+                 "replaces": REPLACES["constraint_eval"], "max_abs_err": 0,
+                 "ms": timing["ms"], "cold_ms": timing["cold_ms"],
+                 "host_us": timing["host_us"], "plain_ms": plain_ms,
+                 "bound_ms": bound_ms,
+                 "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                 "library_ms": None, "library_host_us": None,
+                 "eager_ms": eager_ms, "ops_per_row": program.ops_per_row(),
+                 "instructions": len(program.code), "slots": program.n_slots,
+                 "rows_per_thread_ms": variants})
+    phase(f"kernel constraint_eval {shape}",
+          time.perf_counter() - t0,
+          f"{n_checks + 1} checks exact against the plain executor and the "
+          f"eager DomainEvaluator; kernel {timing['ms']:.4f} ms (cold "
+          f"{timing['cold_ms']:.4f} ms, host {timing['host_us']:.1f} us), "
+          f"plain {plain_ms:.4f} ms, eager DomainEvaluator {eager_ms:.4f} ms,"
+          f" bound {bound_ms:.4f} ms ({program.ops_per_row()} operations a "
+          f"row; {100 * bound_ms / timing['ms']:.1f}% of it); "
+          f"{len(program.code)} instructions, {program.n_slots} slots")
+    del stacks, args, acc
+
+    # the 96-bit prove: one launch a proof, its accumulation == the eager
+    t0 = time.perf_counter()
+    config = config or PcsConfig(SECURE_POW_BITS,
+                                 FriConfig(0, 1, SECURE_QUERIES))
+    seen = []
+    evaluate = ce.evaluate
+    dom_init = cf.DomainEvaluator.__init__
+
+    def recorded(code, n_slots, stacks, scalars, denom_off, t, e, acc):
+        before = acc.clone()
+        out = evaluate(code, n_slots, stacks, scalars, denom_off, t, e, acc)
+        seen.append((stacks, scalars, before, out.clone()))
+        return out
+
+    def no_eager(self, trace_evals, *a, **kw):
+        if any(c.is_cuda for tree in trace_evals for c in tree):
+            fail("the prove ran a DomainEvaluator on CUDA columns")
+        dom_init(self, trace_evals, *a, **kw)
+
+    ce.evaluate, cf.DomainEvaluator.__init__ = recorded, no_eager
+    try:
+        prove_wide_fibonacci(log_n, columns, config, seed=1, device=device)
+        seen.clear()
+        kernels.reset_launches()
+        tracing.reset()
+        tracing.enable(sync=False)
+        try:
+            with tracing.request(0):
+                (proof, comp, cfg), wall = timed(lambda: prove_wide_fibonacci(
+                    log_n, columns, config, seed=2, device=device))
+        finally:
+            tracing.disable()
+        launches = dict(kernels.LAUNCHES)
+        counters = tracing.counts().get(0, {})
+        tracing.reset()
+        tracing.enable()
+        try:
+            _, spans_wall = timed(lambda: prove_wide_fibonacci(
+                log_n, columns, config, seed=3, device=device))
+        finally:
+            tracing.disable()
+    finally:
+        ce.evaluate, cf.DomainEvaluator.__init__ = evaluate, dom_init
+    spans = tracing.totals()
+    tracing.reset()
+    if launches["constraint_eval"] != 1 or len(seen) != 2:
+        fail(f"the warm 2^{log_n} x {columns} prove launched constraint_eval "
+             f"{launches['constraint_eval']} times ({len(seen)} calls seen)")
+    if counters.get("constraint_programs_built", 0) != 0 or \
+            counters.get("constraints_fused") != columns - 2:
+        fail(f"the warm prove's counters: {counters}")
+    stacks, scalars, before, after = seen[0]
+    k = comp.n_constraints()
+    dom = cf.DomainEvaluator([[], [c for c in stacks[1]]], log_n, log_n + 1,
+                             scalars[:4 * k].view(-1, 4),
+                             scalars[4 * k:4 * k + 4], None)
+    comp.eval.evaluate(dom)
+    want = m31.add(before, m31.mul(dom.row_res.arr, dinv[None, :]))
+    if max_abs_err(after, want):
+        fail(f"the 2^{log_n} x {columns} prove's composition accumulation "
+             f"differs from the eager DomainEvaluator on the same columns")
+    verify_wide_fibonacci(proof, comp, cfg, log_n)
+    phase(f"constraint_eval prove {log_n}x{columns} secure", wall,
+          f"warm prove {wall:.3f} s: constraint_eval launched once, "
+          f"constraints_fused {counters.get('constraints_fused')}, "
+          f"constraint_programs_built "
+          f"{counters.get('constraint_programs_built', 0)}, no "
+          f"DomainEvaluator on the card; its accumulation == the eager "
+          f"DomainEvaluator on the same columns; verified; under synced "
+          f"spans {spans_wall:.3f} s, composition "
+          f"{1e3 * spans.get('composition', 0.0):.3f} ms; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+    print("  spans (ms): " + json.dumps(
+        {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
+                                                 key=lambda kv: -kv[1])}),
+          flush=True)
+    return launches
+
+
 def roofline(device) -> dict:
     """Phase 9: tstwo_tpu_torch.measure_roofline on the card, one figure a
     line; returns the launch counts of that path."""
@@ -1534,7 +1807,7 @@ def poseidon_proof_fields(proof) -> dict:
 POSEIDON_MID_LOG = 6  # the CPU-plain prove there takes about half a minute
 # what a Poseidon252 prove must launch, and the Blake2s family it must not
 POSEIDON_KERNELS = ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
-                    "deinterleave")
+                    "deinterleave", "constraint_eval")
 BLAKE2S_KERNELS = ("blake2s", "merkle_layer", "merkle_tail", "blake2s_grind",
                    "blake2s_transcript")
 
@@ -1648,7 +1921,8 @@ MESH_GROUPS = (("blake2s", "nccl", 1, 18, 64), ("blake2s", "gloo", 2, 16, 32),
 # per flavour: the kernels every rank must launch, and those it must not
 MESH_KERNELS = {
     "blake2s": (("cfft_forward", "cfft_inverse", "merkle_layer",
-                 "merkle_tail", "deinterleave", "blake2s_transcript"), ()),
+                 "merkle_tail", "deinterleave", "blake2s_transcript",
+                 "constraint_eval"), ()),
     "poseidon252": (POSEIDON_KERNELS, BLAKE2S_KERNELS)}
 MESH_RANK_TIMEOUT_S = 300
 
@@ -1782,8 +2056,38 @@ def mesh_phase(card: str, single_json: dict) -> None:
               + f"; leaf rows n/{size} of every sharded column")
 
 
+def constraint_eval_only() -> None:
+    """`--only constraint_eval`: the card, the build and phase 8b alone,
+    then the phase's rows of the kernel table."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tstwo_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    t0 = time.perf_counter()
+    kernels.lib()
+    phase("build", time.perf_counter() - t0,
+          f"nvcc {kernels.BUILD_INFO['seconds']:.1f} s")
+    for line in kernels.BUILD_INFO.get("ptxas", "").splitlines():
+        if "constraint_eval" in line or "registers" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+    rows = []
+    launches = constraint_eval_phase(torch.device("cuda", 0), rows)
+    for row in rows:
+        row["launches"] = launches["constraint_eval"]
+    print(json.dumps({"kernels": rows}), flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         mesh_rank(sys.argv[1:])
+    elif sys.argv[1:] == ["--only", "constraint_eval"]:
+        constraint_eval_only()
     else:
         main()

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from tstwo_tpu_torch import kernels
-from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
+from tstwo_tpu_torch.ops import (blake2s, constraint_eval, fft, fri_ops,
+                                 m31_kernels)
 from tstwo_tpu_torch.ops import poseidon252 as pos
 from tstwo_tpu_torch.utils import to_torch_u32
 
@@ -316,6 +317,59 @@ def test_m31_kernels_match_plain_on_random_values(device):
            m31_kernels.mul_chain_plain(a, b, 8))
 
 
+def _program_case(kind, log, device, rng):
+    """A lowered program, random card columns and its scalars."""
+    from tstwo_tpu_torch.constraint_framework import InfoEvaluator
+    from tstwo_tpu_torch.constraint_framework.logup import LookupElements
+    from tstwo_tpu_torch.constraint_framework.program import lower
+    from tstwo_tpu_torch.examples.logup_lookup import LookupEval
+    from tstwo_tpu_torch.examples.wide_fibonacci import WideFibonacciEval
+    from tstwo_tpu_torch.fields import QM31
+
+    def qm31s(k):
+        return [QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+                for _ in range(k)]
+
+    if kind == "wide_fib":
+        ev, params = WideFibonacciEval(log - 1, 12), []
+    else:
+        ev = LookupEval(log - 1, LookupElements(*qm31s(2), 1),
+                        kind == "logup_pairs")
+        info = InfoEvaluator(log - 1)
+        ev.evaluate(info)
+        params = info.secure_params
+    program = lower(ev, log - 1, log)
+    stacks = [_rand(rng, (c, 1 << log), device) if c else None
+              for c in program.columns]
+    scalars = to_torch_u32(program.scalars(
+        qm31s(program.n_constraints), params, qm31s(1)[0]).view(np.uint32),
+        device)
+    return program, program.device_code(device), stacks, scalars
+
+
+@pytest.mark.parametrize("rows_per_thread", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("kind,log", [("wide_fib", 2), ("wide_fib", 5),
+                                      ("wide_fib", 10), ("logup_pairs", 9),
+                                      ("logup_single", 11)])
+def test_constraint_eval_kernel_matches_plain(device, kind, log,
+                                              rows_per_thread):
+    """Tile edges (fewer rows than a tile), offset -1 masks, secure
+    parameters and every rows-per-thread variant, added into a random
+    accumulator."""
+    rng = np.random.default_rng(log)
+    program, code, stacks, scalars = _program_case(kind, log, device, rng)
+    acc = _rand(rng, (4, 1 << log), device)
+    want = constraint_eval.evaluate(code.cpu(), program.n_slots,
+                                    [None if s is None else s.cpu()
+                                     for s in stacks], scalars.cpu(),
+                                    program.denom_off, log - 1, log,
+                                    acc.cpu())
+    constraint_eval.evaluate_cuda(code, program.n_slots, stacks, scalars,
+                                  program.denom_off, log - 1, log, acc,
+                                  rows_per_thread)
+    _exact(acc, want)
+
+
 def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     rng = np.random.default_rng(3)
     kernels.reset_launches()
@@ -336,13 +390,18 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
                         1, device)
     blake2s.transcript(_rand(rng, (8,), device, 1 << 32),
                        msg=_rand(rng, (8,), device, 1 << 32), k=1)
+    program, code, stacks, scalars = _program_case("wide_fib", 6, device, rng)
+    constraint_eval.evaluate(code, program.n_slots, stacks, scalars,
+                             program.denom_off, 5, 6,
+                             _rand(rng, (4, 1 << 6), device))
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
                                 "blake2s": 2, "merkle_layer": 1,
                                 "merkle_tail": 1, "blake2s_grind": 1,
                                 "blake2s_transcript": 1, "deinterleave": 1,
                                 "m31_mul": 1, "m31_mul_chain": 1,
                                 "hades_permutation": 2,
-                                "poseidon_merkle_layer": 2}
+                                "poseidon_merkle_layer": 2,
+                                "constraint_eval": 1}
 
 
 def _grind_digests():

@@ -9,9 +9,10 @@ rejection of a tampered proof and of an unsound trace; and the committed
 golden fixture (which the GPU smoke run compares against).
 
 test_logup.py::test_logup_domain_kernel_shared_across_proofs has no
-counterpart: it checks JAX's jit cache of the domain kernel
-(`kernel_cache_key`, `_DOMAIN_KERNEL_CACHE`), and the port evaluates
-eagerly with no such cache.
+counterpart here: it checks JAX's jit cache of the domain kernel
+(`kernel_cache_key`, `_DOMAIN_KERNEL_CACHE`); the port's cache of
+constraint programs under the same key is tested in
+tests/test_torch_constraint_program.py.
 """
 import json
 import os

@@ -45,6 +45,10 @@ class ColumnAccumulator:
     def col(self) -> torch.Tensor:
         return self._parent.sub_accumulations[self._log_size]
 
+    @col.setter
+    def col(self, values: torch.Tensor) -> None:
+        self._parent.sub_accumulations[self._log_size] = values
+
     def accumulate_column(self, values: torch.Tensor) -> None:
         self._parent.sub_accumulations[self._log_size] = qm31_ops.add(
             self.col, values)

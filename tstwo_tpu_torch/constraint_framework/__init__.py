@@ -5,9 +5,13 @@ The user writes `evaluate(eval)` once against the EvalAtRow interface; it is
 executed with:
   * InfoEvaluator   -- counts constraints and mask structure,
   * PointEvaluator  -- OODS evaluation on host QM31 scalars,
-  * DomainEvaluator -- whole-domain evaluation on device columns (the
-                       analog of Rust's SimdDomainEvaluator: every
-                       constraint runs once over all rows, eagerly),
+  * ProgramRecorder -- lowers the constraints once to a constraint
+                       program (program.py), which the prover runs over
+                       the whole evaluation domain in one kernel launch
+                       (ops/constraint_eval.py),
+  * DomainEvaluator -- whole-domain evaluation on device columns, every
+                       constraint once over all rows, eagerly (the analog
+                       of Rust's SimdDomainEvaluator; the programs' oracle),
   * AssertEvaluator -- debug: checks constraints vanish on the trace domain.
 
 reference constraint_framework/index.ts (whose domain path is a TS
@@ -26,15 +30,15 @@ from ..air import (INTERACTION_TRACE_IDX, ORIGINAL_TRACE_IDX,
 from ..air.accumulator import (DomainEvaluationAccumulator,
                                PointEvaluationAccumulator)
 from ..circle import CanonicCoset, CirclePoint
-from ..constraints import (coset_vanishing,
-                           coset_vanishing_denominator_inverses_bitrev)
+from ..constraints import coset_vanishing
 from ..fields import M31, QM31
 from ..lookups.utils import Fraction
-from ..ops import m31 as m31_ops
+from ..ops import constraint_eval
 from ..ops import qm31 as qm31_ops
 from ..pcs import TreeSubspan
 from ..pcs.utils import TreeVec
-from ..utils import bit_reverse_permutation, to_torch_u32, upload
+from ..tracing import count
+from ..utils import bit_reverse_permutation, upload
 from .expr import BaseExpr, SecureExpr
 from .logup import LogupAtRow, LookupElements, RelationEntry
 from .preprocessed import PreProcessedColumnId
@@ -402,6 +406,17 @@ class FrameworkEval:
     def evaluate(self, evaluator):
         raise NotImplementedError
 
+    def kernel_cache_key(self):
+        """Optional: a hashable key naming everything `evaluate` records
+        besides the sizes.  Components whose evals return the same non-None
+        key (and type) share one constraint program, so repeated proves
+        lower nothing.  None (the default): one program a component."""
+        return None
+
+
+# constraint programs shared by components whose evals give a
+# kernel_cache_key(): (eval type, key, trace_log, eval_log) -> program
+_PROGRAM_CACHE: dict = {}
 
 
 class FrameworkComponent:
@@ -427,6 +442,7 @@ class FrameworkComponent:
             for cid in info.preprocessed_columns]
         # per-proof channel randomness captured at construction
         self._secure_params: List[QM31] = list(info.secure_params)
+        self._programs: dict = {}  # (trace_log, eval_log) -> program
 
     # -- Component ----------------------------------------------------------
     def n_constraints(self) -> int:
@@ -487,42 +503,61 @@ class FrameworkComponent:
             raise ValueError("logup fractions written but never finalized")
 
     # -- ComponentProver ----------------------------------------------------
+    def constraint_program(self, trace_log: int, eval_log: int):
+        """This component's constraints lowered to a constraint program
+        (program.py) for a trace of 2^trace_log rows evaluated on 2^eval_log
+        points.  Lowered once a component and size; an eval whose
+        `kernel_cache_key()` is not None shares it with every component of
+        the same eval type and key, so a warm proof lowers nothing."""
+        from .program import lower
+
+        program = self._programs.get((trace_log, eval_log))
+        if program is not None:
+            return program
+        shared = self.eval.kernel_cache_key()
+        if shared is not None:
+            shared = (type(self.eval), shared, trace_log, eval_log)
+            program = _PROGRAM_CACHE.get(shared)
+        if program is None:
+            program = lower(self.eval, trace_log, eval_log)
+            count("constraint_programs_built", 1)
+            if shared is not None:
+                _PROGRAM_CACHE[shared] = program
+        self._programs[(trace_log, eval_log)] = program
+        return program
+
     def evaluate_constraint_quotients_on_domain(
             self, trace: Trace,
             accumulator: DomainEvaluationAccumulator) -> None:
+        """Add this component's constraint quotients on the evaluation
+        domain into `accumulator`: the trace extended (one batched CFFT an
+        interaction), then the constraint program over every row, one
+        `constraint_eval` launch on the card (the plain executor on the
+        CPU)."""
         from ..poly.circle_poly import evaluate_values
 
         eval_log = self.max_constraint_log_degree_bound()
         trace_log = self.eval.log_size()
         eval_domain = CanonicCoset.new(eval_log).circle_domain()
-        component_polys = self._sub_tree(trace.polys)
         device = trace.device()
-        # every column of an interaction extends in one batched CFFT
-        trace_evals = []
-        for tree in component_polys:
-            if not tree:
-                trace_evals.append([])
-                continue
-            stacked = torch.stack([p.coeffs for p in tree])
-            ext = evaluate_values(stacked, eval_domain, accumulator.twiddles)
-            trace_evals.append([ext[i] for i in range(ext.shape[0])])
+        stacks = []  # per interaction: the extended columns, [B, n]
+        for tree in self._sub_tree(trace.polys):
+            stacks.append(evaluate_values(
+                torch.stack([p.coeffs for p in tree]), eval_domain,
+                accumulator.twiddles) if tree else None)
         (accum,) = accumulator.columns([(eval_log, self.n_constraints())])
-        powers = to_torch_u32(np.array(
-            [q.to_ints() for q in reversed(accum.random_coeff_powers)],
-            dtype=np.uint32).reshape(-1, 4), device)
-        denom_inv = to_torch_u32(
-            coset_vanishing_denominator_inverses_bitrev(trace_log, eval_log),
-            device)
+        program = self.constraint_program(trace_log, eval_log)
+        for i, cols in enumerate(program.columns):
+            if cols > (0 if i >= len(stacks) or stacks[i] is None
+                       else stacks[i].shape[0]):
+                raise ValueError(f"the constraints read {cols} columns of "
+                                 f"interaction {i}; the trace has fewer")
         cumsum_shift = self.claimed_sum.mul_m31(
             M31.from_int(1 << trace_log).inverse())
-        shift = to_torch_u32(np.array(cumsum_shift.to_ints(), np.uint32),
-                             device)
-        params = to_torch_u32(np.array(
-            [q.to_ints() for q in self._secure_params],
-            dtype=np.uint32).reshape(-1, 4), device)
-        ev = DomainEvaluator(trace_evals, trace_log, eval_log, powers, shift,
-                             params)
-        self.eval.evaluate(ev)
-        if not ev.logup.is_finalized:
-            raise ValueError("logup fractions written but never finalized")
-        accum.accumulate_column(m31_ops.mul(ev.row_res.arr, denom_inv[None, :]))
+        scalars = upload(torch.from_numpy(program.scalars(
+            accum.random_coeff_powers, self._secure_params, cumsum_shift)),
+            device)
+        count("constraints_fused", program.n_constraints)
+        accum.col = constraint_eval.evaluate(
+            program.device_code(device), program.n_slots, stacks, scalars,
+            program.denom_off, trace_log, eval_log, accum.col)

@@ -37,6 +37,9 @@ class TestEval(FrameworkEval):
     def max_constraint_log_degree_bound(self) -> int:
         return self._log_size + CONSTRAINT_EVAL_BLOWUP_FACTOR
 
+    def kernel_cache_key(self):
+        return (self._log_size,)
+
     def evaluate(self, ev):
         col_1 = ev.next_trace_mask()
         col_2 = ev.next_trace_mask()

@@ -57,6 +57,10 @@ class LookupEval(FrameworkEval):
     def max_constraint_log_degree_bound(self) -> int:
         return self.log_n_rows + 1
 
+    def kernel_cache_key(self):
+        return (self.log_n_rows, self.pairs,
+                len(self.lookup_elements.alpha_powers))
+
     def evaluate(self, ev):
         seq = ev.get_preprocessed_column(Seq(self.log_n_rows).id())
         val = ev.next_trace_mask()

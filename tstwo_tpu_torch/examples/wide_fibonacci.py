@@ -43,6 +43,9 @@ class WideFibonacciEval(FrameworkEval):
     def max_constraint_log_degree_bound(self) -> int:
         return self.log_n_rows + 1
 
+    def kernel_cache_key(self):
+        return (self.log_n_rows, self.sequence_length)
+
     def evaluate(self, ev):
         a = ev.next_trace_mask()
         b = ev.next_trace_mask()

@@ -13,10 +13,11 @@ without children as `blake2s`, a Merkle layer that reads its child pairs
 as `merkle_layer`, the one-block top of a tree as `merkle_tail`, a batch
 of proof-of-work nonces as `blake2s_grind`, a Fiat-Shamir transcript step
 as `blake2s_transcript`),
-ops/fri_ops.py, ops/m31_kernels.py and ops/poseidon252.py (the Hades
+ops/fri_ops.py, ops/m31_kernels.py, ops/poseidon252.py (the Hades
 permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
-as `poseidon_merkle_layer`) add one per call of the C entry point, and
-nowhere else.
+as `poseidon_merkle_layer`) and ops/constraint_eval.py (a component's
+constraint program over its evaluation domain as `constraint_eval`) add
+one per call of the C entry point, and nowhere else.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cfft.cu", "cfft_forward.cu", "blake2s.cu", "deinterleave.cu",
-           "m31_kernels.cu", "poseidon252.cu")
+           "m31_kernels.cu", "poseidon252.cu", "constraint_eval.cu")
 HEADERS = ("m31.cuh", "cfft_pass.cuh", "segments.cuh", "felt252.cuh",
            "blake2s.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
@@ -71,6 +72,11 @@ _SIGNATURES = {
     # prev, seg_ptrs, seg_strides, seg_rows, n_segs, out, n, stream
     "tstwo_poseidon_merkle_layer": (_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
                                     ctypes.c_longlong, _VP),
+    # program, n_instr, scalars, n_scalars, denom_off, ptrs, strides, acc,
+    # log_n, trace_log, n_slots, rows_per_thread, stream
+    "tstwo_constraint_eval": (_VP, ctypes.c_int, _VP, ctypes.c_int,
+                              ctypes.c_int, _VP, _VP, _VP, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP),
 }
 
 # entry points that launch nothing: (argument types, result type)
@@ -88,7 +94,7 @@ LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
             "merkle_layer": 0, "merkle_tail": 0, "blake2s_grind": 0,
             "blake2s_transcript": 0, "deinterleave": 0,
             "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
-            "poseidon_merkle_layer": 0}
+            "poseidon_merkle_layer": 0, "constraint_eval": 0}
 
 _lib = None
 _entries: dict = {}  # entry name -> bound C function, filled by lib()
