@@ -748,6 +748,11 @@ def main() -> None:
     # the 96-bit 2^20 prove's composition against the eager evaluator
     counts["constraint_eval"] = constraint_eval_phase(device, rows)[
         "constraint_eval"]
+    # 8c. the Poseidon2 AIR: its 19,899-instruction program, a 96-bit prove
+    # that launches every kernel of the main path and the grind; its
+    # program's row carries that prove's launches, the others the counts
+    # below
+    poseidon2_phase(device, rows)
 
     # 9. the roofline probes: the M31 probe kernels' path
     launches = roofline(device)
@@ -766,7 +771,7 @@ def main() -> None:
     mesh_phase(card, single_json)
 
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row.setdefault("launches", counts[row["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1404,7 +1409,8 @@ def constraint_eval_phase(device, rows: list, log_n: int = 20,
         return program, code, stacks, scalars
 
     def run(program, code, stacks, scalars, acc, rows_per_thread=0):
-        ce.evaluate_cuda(code, program.n_slots, stacks, scalars,
+        ce.evaluate_cuda(code, program.device_loads(device),
+                         program.n_slots, stacks, scalars,
                          program.denom_off, program.trace_log,
                          program.eval_log, acc, rows_per_thread)
         return acc
@@ -1516,9 +1522,10 @@ def constraint_eval_phase(device, rows: list, log_n: int = 20,
     evaluate = ce.evaluate
     dom_init = cf.DomainEvaluator.__init__
 
-    def recorded(code, n_slots, stacks, scalars, denom_off, t, e, acc):
+    def recorded(code, loads, n_slots, stacks, scalars, denom_off, t, e, acc):
         before = acc.clone()
-        out = evaluate(code, n_slots, stacks, scalars, denom_off, t, e, acc)
+        out = evaluate(code, loads, n_slots, stacks, scalars, denom_off, t,
+                       e, acc)
         seen.append((stacks, scalars, before, out.clone()))
         return out
 
@@ -1579,6 +1586,185 @@ def constraint_eval_phase(device, rows: list, log_n: int = 20,
           f"DomainEvaluator on the same columns; verified; under synced "
           f"spans {spans_wall:.3f} s, composition "
           f"{1e3 * spans.get('composition', 0.0):.3f} ms; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+    print("  spans (ms): " + json.dumps(
+        {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
+                                                 key=lambda kv: -kv[1])}),
+          flush=True)
+    return launches
+
+
+def poseidon2_phase(device, rows: list, log_n: int = 17,
+                    config=None) -> dict:
+    """Phase 8c: the Poseidon2 AIR (examples/poseidon2.py).  Its constraint
+    program (19,899 instructions, more than a block's shared memory holds)
+    and wide Fibonacci's (493) through `constraint_eval`, each bit for bit
+    against the plain executor and timed warm and cold as phase 8b times
+    them: Poseidon2 at 2^(log_n + 2) x 1264 (+ 32 interaction columns),
+    bound by the operations its equations need (the benchmark reference's
+    `constraint_ops`, the port's instruction count beside it), wide
+    Fibonacci at 2^21 x 100, bound by the port's count as in phase 8b.
+    Then a 2^log_n-row prove at 96 bits, three times: the warm prove,
+    with the launch counts reset just before it, launches `constraint_eval`
+    once and every kernel of the main path and the grind, runs no
+    DomainEvaluator on the card, fuses 1144 constraints, and verifies.
+    The Poseidon2 row's `launches` are that prove's; returns its launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from tstwo_tpu_torch import constraint_framework as cf
+    from tstwo_tpu_torch import kernels, tracing
+    from tstwo_tpu_torch.constraint_framework.logup import LookupElements
+    from tstwo_tpu_torch.constraint_framework.program import lower
+    from tstwo_tpu_torch.examples.poseidon2 import (
+        N_STATE, Poseidon2Eval, prove_poseidon2, verify_poseidon2)
+    from tstwo_tpu_torch.examples.wide_fibonacci import WideFibonacciEval
+    from tstwo_tpu_torch.fields import M31, QM31
+    from tstwo_tpu_torch.fri import FriConfig
+    from tstwo_tpu_torch.measure_roofline import time_call
+    from tstwo_tpu_torch.ops import constraint_eval as ce
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    sys.path.insert(0, str(ROOT))
+    from stark_bench.reference.poseidon2 import constraint_ops
+
+    rng = np.random.default_rng(19)
+
+    def qm31s(k):
+        return [QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+                for _ in range(k)]
+
+    def program_row(name, ev, t, e, columns_bytes, equation_ops=None):
+        """The kernel-table row of `ev`'s program; its bound counts
+        `equation_ops` operations where given, else the program's."""
+        t0 = time.perf_counter()
+        info = cf.InfoEvaluator(t)
+        ev.evaluate(info)
+        program = lower(ev, t, e)
+        stacks = [to_torch_u32(rng.integers(0, P, (c, 1 << e), dtype=np.int64)
+                               .astype(np.uint32), device) if c else None
+                  for c in program.columns]
+        shift = qm31s(1)[0].mul_m31(M31.from_int(1 << t).inverse())
+        scalars = to_torch_u32(program.scalars(
+            qm31s(program.n_constraints), info.secure_params, shift
+        ).view(np.uint32), device)
+        code, loads = program.device_code(device), program.device_loads(device)
+        acc = torch.zeros((4, 1 << e), dtype=torch.int32, device=device)
+
+        def run():
+            ce.evaluate_cuda(code, loads, program.n_slots, stacks, scalars,
+                             program.denom_off, t, e, acc)
+
+        run()
+        want = ce.evaluate_plain(code, program.n_slots, stacks, scalars,
+                                 program.denom_off, t, e)
+        err = max_abs_err(acc, want)
+        if err:
+            fail(f"constraint_eval {name} differs from the plain executor "
+                 f"(max_abs_err {err})")
+        del want
+        timing = time_call(run)
+        rows_pt, chunk = ce.launch_shape(len(program.code),
+                                         program.count(ce.LOAD),
+                                         scalars.numel(), program.n_slots)
+        n_ops = (program.ops_per_row() << e if equation_ops is None
+                 else equation_ops)
+        n_bytes = (columns_bytes + 2 * 16) << e
+        by_ops = n_ops / INT32_OPS_PER_S * 1e3
+        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(by_ops, by_bytes)
+        shape = f"[{sum(program.columns)},2^{e}] {name}"
+        row = {"name": "constraint_eval", "shape": shape,
+                     "route": "cuda", "source": CSRC + "constraint_eval.cu",
+                     "replaces": REPLACES["constraint_eval"],
+                     "max_abs_err": 0, "ms": timing["ms"],
+                     "cold_ms": timing["cold_ms"],
+                     "host_us": timing["host_us"], "bound_ms": bound_ms,
+                     "bound_by": ("bytes" if by_bytes >= by_ops
+                                  else "operations"),
+                     "library_ms": None, "library_host_us": None,
+                     "ops_per_row": n_ops >> e,
+                     "program_ops_per_row": program.ops_per_row(),
+                     "instructions": len(program.code),
+                     "loads": int(program.count(ce.LOAD)),
+                     "slots": program.n_slots, "rows_per_thread": rows_pt,
+                     "chunk": chunk}
+        rows.append(row)
+        source = "the program's" if equation_ops is None else (
+            f"the equations'; the program's {program.ops_per_row()}")
+        phase(f"kernel constraint_eval {shape}", time.perf_counter() - t0,
+              f"exact against the plain executor; kernel "
+              f"{timing['ms']:.4f} ms (cold {timing['cold_ms']:.4f} ms, host "
+              f"{timing['host_us']:.1f} us), bound {bound_ms:.4f} ms "
+              f"({n_ops >> e} operations a row, {source}; "
+              f"{100 * bound_ms / timing['ms']:.1f}% of it); "
+              f"{len(program.code)} instructions, "
+              f"{program.count(ce.LOAD)} loads, {program.n_slots} slots, "
+              f"{rows_pt} rows a thread, {chunk} instructions a chunk")
+        del stacks, acc
+        return row
+
+    p2_row = program_row("poseidon2", Poseidon2Eval(
+        log_n, LookupElements(*qm31s(2), N_STATE)), log_n, log_n + 2,
+        4 * (1264 + 32), constraint_ops({}, log_n))
+    program_row("wide_fib", WideFibonacciEval(20, 100), 20, 21, 4 * 100)
+
+    # the 96-bit prove: one launch a proof, no eager evaluator, verified
+    t0 = time.perf_counter()
+    config = config or PcsConfig(SECURE_POW_BITS,
+                                 FriConfig(0, 1, SECURE_QUERIES))
+    dom_init = cf.DomainEvaluator.__init__
+
+    def no_eager(self, trace_evals, *a, **kw):
+        if any(c.is_cuda for tree in trace_evals for c in tree):
+            fail("the Poseidon2 prove ran a DomainEvaluator on CUDA columns")
+        dom_init(self, trace_evals, *a, **kw)
+
+    cf.DomainEvaluator.__init__ = no_eager
+    try:
+        prove_poseidon2(log_n, config, seed=1, device=device)
+        kernels.reset_launches()
+        tracing.reset()
+        tracing.enable(sync=False)
+        try:
+            with tracing.request(0):
+                (proof, cfg, claimed), wall = timed(lambda: prove_poseidon2(
+                    log_n, config, seed=2, device=device))
+        finally:
+            tracing.disable()
+        launches = launch_counts(f"poseidon2 {log_n} secure",
+                                 MAIN_PATH_KERNELS + ("blake2s_grind",))
+        counters = tracing.counts().get(0, {})
+        tracing.reset()
+        tracing.enable()
+        try:
+            _, spans_wall = timed(lambda: prove_poseidon2(
+                log_n, config, seed=3, device=device))
+        finally:
+            tracing.disable()
+    finally:
+        cf.DomainEvaluator.__init__ = dom_init
+    spans = tracing.totals()
+    tracing.reset()
+    if launches["constraint_eval"] != 1:
+        fail(f"the warm Poseidon2 2^{log_n} prove launched constraint_eval "
+             f"{launches['constraint_eval']} times")
+    p2_row["launches"] = launches["constraint_eval"]
+    if counters.get("constraints_fused") != 1144 or \
+            counters.get("constraint_programs_built", 0) != 0 or \
+            counters.get("logup_columns") != 8 or \
+            counters.get("logup_fractions") != 16 << log_n:
+        fail(f"the warm Poseidon2 prove's counters: {counters}")
+    verify_poseidon2(proof, cfg, log_n, claimed)
+    phase(f"poseidon2 prove {log_n} secure", wall,
+          f"warm prove {wall:.3f} s: constraint_eval launched once, "
+          f"counters {json.dumps(counters)}, no DomainEvaluator on the "
+          f"card; verified (claimed sum {claimed}); under synced spans "
+          f"{spans_wall:.3f} s, composition "
+          f"{1e3 * spans.get('composition', 0.0):.3f} ms, interaction "
+          f"{1e3 * spans.get('interaction_trace', 0.0):.3f} ms; "
           f"{time.perf_counter() - t0:.1f} s in all")
     print("  spans (ms): " + json.dumps(
         {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
@@ -2056,9 +2242,10 @@ def mesh_phase(card: str, single_json: dict) -> None:
               + f"; leaf rows n/{size} of every sharded column")
 
 
-def constraint_eval_only() -> None:
+def constraint_eval_only(which: str = "constraint_eval") -> None:
     """`--only constraint_eval`: the card, the build and phase 8b alone,
-    then the phase's rows of the kernel table."""
+    then the phase's rows of the kernel table; `--only poseidon2`: phase
+    8c instead."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -2078,16 +2265,19 @@ def constraint_eval_only() -> None:
         if "constraint_eval" in line or "registers" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = []
-    launches = constraint_eval_phase(torch.device("cuda", 0), rows)
+    run_phase = (constraint_eval_phase if which == "constraint_eval"
+                 else poseidon2_phase)
+    launches = run_phase(torch.device("cuda", 0), rows)
     for row in rows:
-        row["launches"] = launches["constraint_eval"]
+        row.setdefault("launches", launches["constraint_eval"])
     print(json.dumps({"kernels": rows}), flush=True)
 
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         mesh_rank(sys.argv[1:])
-    elif sys.argv[1:] == ["--only", "constraint_eval"]:
-        constraint_eval_only()
+    elif sys.argv[1:2] == ["--only"] and sys.argv[2:] in (
+            ["constraint_eval"], ["poseidon2"]):
+        constraint_eval_only(sys.argv[2])
     else:
         main()

@@ -359,13 +359,52 @@ def test_constraint_eval_kernel_matches_plain(device, kind, log,
     rng = np.random.default_rng(log)
     program, code, stacks, scalars = _program_case(kind, log, device, rng)
     acc = _rand(rng, (4, 1 << log), device)
-    want = constraint_eval.evaluate(code.cpu(), program.n_slots,
-                                    [None if s is None else s.cpu()
-                                     for s in stacks], scalars.cpu(),
-                                    program.denom_off, log - 1, log,
-                                    acc.cpu())
-    constraint_eval.evaluate_cuda(code, program.n_slots, stacks, scalars,
+    want = constraint_eval.evaluate(
+        code.cpu(), program.device_loads(torch.device("cpu")),
+        program.n_slots, [None if s is None else s.cpu() for s in stacks],
+        scalars.cpu(), program.denom_off, log - 1, log, acc.cpu())
+    constraint_eval.evaluate_cuda(code, program.device_loads(device),
+                                  program.n_slots, stacks, scalars,
                                   program.denom_off, log - 1, log, acc,
+                                  rows_per_thread)
+    _exact(acc, want)
+
+
+@pytest.mark.parametrize("rows_per_thread", [0, 1, 2])
+def test_constraint_eval_kernel_streams_a_long_program(device,
+                                                       rows_per_thread):
+    """Poseidon2's program, 19,899 instructions (more than a block's shared
+    memory holds, so the kernel takes it in chunks), with offset -1 masks
+    and 272 secure parameters, at 2^7 rows of a 2^5-row trace."""
+    from tstwo_tpu_torch.constraint_framework import InfoEvaluator
+    from tstwo_tpu_torch.constraint_framework.logup import LookupElements
+    from tstwo_tpu_torch.constraint_framework.program import lower
+    from tstwo_tpu_torch.examples.poseidon2 import Poseidon2Eval
+    from tstwo_tpu_torch.fields import QM31
+
+    rng = np.random.default_rng(7)
+    z, alpha = (QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+                for _ in range(2))
+    ev = Poseidon2Eval(5, LookupElements(z, alpha, 16))
+    info = InfoEvaluator(5)
+    ev.evaluate(info)
+    program = lower(ev, 5, 7)
+    assert len(program.code) == 19899
+    stacks = [_rand(rng, (c, 1 << 7), device) if c else None
+              for c in program.columns]
+    coeffs = [QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+              for _ in range(program.n_constraints)]
+    scalars = to_torch_u32(program.scalars(
+        coeffs, info.secure_params, z).view(np.uint32), device)
+    code = program.device_code(device)
+    acc = _rand(rng, (4, 1 << 7), device)
+    want = constraint_eval.evaluate(
+        code.cpu(), program.device_loads(torch.device("cpu")),
+        program.n_slots, [None if s is None else s.cpu() for s in stacks],
+        scalars.cpu(), program.denom_off, 5, 7, acc.cpu())
+    constraint_eval.evaluate_cuda(code, program.device_loads(device),
+                                  program.n_slots, stacks, scalars,
+                                  program.denom_off, 5, 7, acc,
                                   rows_per_thread)
     _exact(acc, want)
 
@@ -391,7 +430,8 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     blake2s.transcript(_rand(rng, (8,), device, 1 << 32),
                        msg=_rand(rng, (8,), device, 1 << 32), k=1)
     program, code, stacks, scalars = _program_case("wide_fib", 6, device, rng)
-    constraint_eval.evaluate(code, program.n_slots, stacks, scalars,
+    constraint_eval.evaluate(code, program.device_loads(device),
+                             program.n_slots, stacks, scalars,
                              program.denom_off, 5, 6,
                              _rand(rng, (4, 1 << 6), device))
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,

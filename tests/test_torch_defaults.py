@@ -713,6 +713,7 @@ ENTRY_POINTS = {
                     "basic_air.generate_trace", "basic_air.prove_basic_air",
                     "logup_lookup.generate_trace",
                     "logup_lookup.prove_logup_lookup",
+                    "poseidon2.generate_trace", "poseidon2.prove_poseidon2",
                     "tutorial.example_01_writing_a_spreadsheet",
                     "tutorial.example_02_from_spreadsheet_to_trace_"
                     "polynomials",

@@ -559,5 +559,6 @@ class FrameworkComponent:
             device)
         count("constraints_fused", program.n_constraints)
         accum.col = constraint_eval.evaluate(
-            program.device_code(device), program.n_slots, stacks, scalars,
-            program.denom_off, trace_log, eval_log, accum.col)
+            program.device_code(device), program.device_loads(device),
+            program.n_slots, stacks, scalars, program.denom_off, trace_log,
+            eval_log, accum.col)

@@ -29,6 +29,7 @@ from ..lookups.utils import Fraction
 from ..ops import qm31 as qm31_ops
 from ..ops.prefix_sum import inclusive_prefix_sum_bit_rev_circle
 from ..poly.circle_poly import CircleEvaluation
+from ..tracing import count, span
 from ..utils import entry_device, to_host_list
 
 P = (1 << 31) - 1
@@ -176,6 +177,7 @@ class LogupColGenerator:
         """Add numerator/denominator (whole columns, or scalars broadcast
         over all rows) to this column's per-row fraction."""
         num, den = self._coerce(numerator), self._coerce(denominator)
+        count("logup_fractions", 1 << self.gen.log_size)
         if self._num is None:
             self._num, self._den = num, den
         else:
@@ -192,6 +194,7 @@ class LogupColGenerator:
         if self.gen._cols:
             col = qm31_ops.add(col, self.gen._cols[-1])
         self.gen._cols.append(col)
+        count("logup_columns", 1)
 
 
 class LogupTraceGenerator:
@@ -207,11 +210,23 @@ class LogupTraceGenerator:
         self.log_size = log_size
         self.device = entry_device(device)
         self._cols: List[torch.Tensor] = []
+        self._span = None  # `interaction_trace`: first column to the end
 
     def new_col(self) -> LogupColGenerator:
+        if self._span is None:
+            self._span = span("interaction_trace")
+            self._span.__enter__()
         return LogupColGenerator(self)
 
     def finalize_last(self):
+        try:
+            return self._finalize_last()
+        finally:
+            if self._span is not None:
+                self._span.__exit__(None, None, None)
+                self._span = None
+
+    def _finalize_last(self):
         if not self._cols:
             raise ValueError("no interaction columns written")
         last = self._cols[-1]

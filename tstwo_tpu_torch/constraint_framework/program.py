@@ -166,6 +166,15 @@ class ConstraintProgram:
                                             device)
         return self._device_code[key]
 
+    def device_loads(self, device: torch.device) -> torch.Tensor:
+        """The program's load table (ops/constraint_eval.py `load_table`)
+        on `device`, uploaded once."""
+        key = ("loads", str(device))
+        if key not in self._device_code:
+            self._device_code[key] = upload(
+                ce.load_table(torch.from_numpy(self.code)), device)
+        return self._device_code[key]
+
 
 class ProgramRecorder(_LogupEvalMixin):
     """EvalAtRow that records SSA nodes instead of computing.

@@ -11,10 +11,16 @@
 //
 // What it runs: a constraint program (constraint_framework/program.py,
 // instruction set in ops/constraint_eval.py), straight-line register code
-// lowered once from the AIR's own `evaluate`.  A block copies the program,
-// a table of its loads and the per-proof scalars (random coefficients,
-// secure parameters, cumsum shift, constants, denominator inverses) into
-// shared memory, then walks tiles of kRows * 128 rows.  Every thread runs
+// lowered once from the AIR's own `evaluate`.  A block copies a table of
+// its loads (the host's `load_table`, each row turned into its column's
+// address) and the per-proof scalars (random coefficients, secure
+// parameters, cumsum shift, constants, denominator inverses) into shared
+// memory, then walks tiles of kRows * 128 rows.  The program passes
+// through shared memory in chunks of at most kMaxChunk instructions: a
+// program of one chunk (wide Fibonacci's 493 instructions) is copied once a
+// block, a longer one (Poseidon2's 19,899, 318 KB, more than a block's 227
+// KB of shared memory) chunk by chunk for each tile, from L2, between two
+// barriers.  Every thread runs
 // the same instruction, so the dispatch never diverges, on kRows rows at
 // once, so that one decode serves all of them; instructions are taken two a
 // turn, each one's read from shared memory in flight while the other runs.
@@ -57,6 +63,8 @@ constexpr int kThreads = 128;
 constexpr int kMaxInteractions = 8;  // ops/constraint_eval.py MAX_INTERACTIONS
 constexpr int kDefaultRows = 4;
 constexpr int kDepth = 3;  // loads in flight ahead of the one stored
+constexpr int kMaxChunk = 1024;  // instructions in shared memory at once
+constexpr int kMinChunk = 64;
 
 // ops/constraint_eval.py: the opcodes, FOLD
 enum Op : int {
@@ -175,28 +183,26 @@ __device__ __forceinline__ void issue_load(const LoadDesc& load,
 template <int kRows>
 __global__ void __launch_bounds__(kThreads, 4)
 constraint_eval_kernel(const int4* __restrict__ program, int n_instr,
+                       const int4* __restrict__ load_rows, int n_loads,
                        const uint32_t* __restrict__ scalars, int n_scalars,
                        int denom_off, Interactions tab,
-                       uint32_t* __restrict__ acc, int log_n, int trace_log) {
+                       uint32_t* __restrict__ acc, int log_n, int trace_log,
+                       int chunk) {
   constexpr int kSlot = kRows * kThreads;  // words between two slots
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int n_loads;
-  int4* prog = reinterpret_cast<int4*>(smem_raw);
-  LoadDesc* loads = reinterpret_cast<LoadDesc*>(prog + n_instr);  // in order
-  uint32_t* sc = reinterpret_cast<uint32_t*>(loads + n_instr);
+  int4* prog = reinterpret_cast<int4*>(smem_raw);  // the current chunk
+  LoadDesc* loads = reinterpret_cast<LoadDesc*>(prog + chunk);  // in order
+  uint32_t* sc = reinterpret_cast<uint32_t*>(loads + n_loads);
   uint32_t* regs = sc + ((n_scalars + 3) & ~3);
-  for (int i = threadIdx.x; i < n_instr; i += kThreads) prog[i] = program[i];
+  const bool one_chunk = n_instr <= chunk;
+  if (one_chunk) {
+    for (int i = threadIdx.x; i < n_instr; i += kThreads) prog[i] = program[i];
+  }
   for (int i = threadIdx.x; i < n_scalars; i += kThreads) sc[i] = scalars[i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int k = 0;
-    for (int pc = 0; pc < n_instr; ++pc) {
-      const int4 ins = prog[pc];
-      if ((ins.x & 0xff) != kLoad) continue;
-      const int i = ins.z < kMaxInteractions ? ins.z : 0;
-      loads[k++] = {tab.ptr[i] + ins.w * tab.stride[i], ins.x >> 8, 0};
-    }
-    n_loads = k;
+  for (int k = threadIdx.x; k < n_loads; k += kThreads) {
+    const int4 row = load_rows[k];  // (interaction, column, offset, 0)
+    const int i = row.x < kMaxInteractions ? row.x : 0;
+    loads[k] = {tab.ptr[i] + row.y * tab.stride[i], row.z, 0};
   }
   __syncthreads();
 
@@ -373,15 +379,25 @@ constraint_eval_kernel(const int4* __restrict__ program, int n_instr,
           break;
       }
     };
-    // two instructions a turn: each one's read from shared memory is in
-    // flight while the other runs, and no copy passes between them
-    int4 ins = n_instr > 0 ? prog[0] : make_int4(0, 0, 0, 0);
-    for (int pc = 0; pc < n_instr; pc += 2) {
-      const int4 other = prog[pc + 1 < n_instr ? pc + 1 : pc];
-      step(ins);
-      if (pc + 1 >= n_instr) break;
-      ins = prog[pc + 2 < n_instr ? pc + 2 : pc];
-      step(other);
+    for (int base = 0; base < n_instr; base += chunk) {
+      const int len = n_instr - base < chunk ? n_instr - base : chunk;
+      if (!one_chunk) {  // every thread is past the last chunk's reads
+        __syncthreads();
+        for (int i = threadIdx.x; i < len; i += kThreads) {
+          prog[i] = program[base + i];
+        }
+        __syncthreads();
+      }
+      // two instructions a turn: each one's read from shared memory is in
+      // flight while the other runs, and no copy passes between them
+      int4 ins = prog[0];
+      for (int pc = 0; pc < len; pc += 2) {
+        const int4 other = prog[pc + 1 < len ? pc + 1 : pc];
+        step(ins);
+        if (pc + 1 >= len) break;
+        ins = prog[pc + 2 < len ? pc + 2 : pc];
+        step(other);
+      }
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -397,16 +413,19 @@ constraint_eval_kernel(const int4* __restrict__ program, int n_instr,
   }
 }
 
-size_t smem_bytes(int rows, int n_instr, int n_scalars, int n_slots) {
-  return static_cast<size_t>(n_instr) * (sizeof(int4) + sizeof(LoadDesc)) +
+size_t smem_bytes(int rows, int chunk, int n_loads, int n_scalars,
+                  int n_slots) {
+  return static_cast<size_t>(chunk) * sizeof(int4) +
+         static_cast<size_t>(n_loads) * sizeof(LoadDesc) +
          static_cast<size_t>((n_scalars + 3) & ~3) * 4 +
          static_cast<size_t>(n_slots) * rows * kThreads * 4;
 }
 
 template <int kRows>
-int launch(const int4* program, int n_instr, const uint32_t* scalars,
-           int n_scalars, int denom_off, const Interactions& tab, uint32_t* acc,
-           int log_n, int trace_log, size_t smem, cudaStream_t stream) {
+int launch(const int4* program, int n_instr, const int4* loads, int n_loads,
+           const uint32_t* scalars, int n_scalars, int denom_off,
+           const Interactions& tab, uint32_t* acc, int log_n, int trace_log,
+           int chunk, size_t smem, cudaStream_t stream) {
   auto kernel = constraint_eval_kernel<kRows>;
   if (smem > 48 * 1024) {  // on the current device, every call
     const cudaError_t err = cudaFuncSetAttribute(
@@ -425,22 +444,59 @@ int launch(const int4* program, int n_instr, const uint32_t* scalars,
   const long long tiles = ((1LL << log_n) + kRows * kThreads - 1) / (kRows * kThreads);
   const long long resident = static_cast<long long>(sms) * per_sm;
   const unsigned grid = static_cast<unsigned>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kThreads, smem, stream>>>(program, n_instr, scalars, n_scalars,
-                                           denom_off, tab, acc, log_n, trace_log);
+  kernel<<<grid, kThreads, smem, stream>>>(program, n_instr, loads, n_loads,
+                                           scalars, n_scalars, denom_off, tab,
+                                           acc, log_n, trace_log, chunk);
   return cudaGetLastError();
+}
+
+// The rows a thread and the instructions a chunk of a launch: kDefaultRows
+// (or the rows asked for) halved, then the chunk halved, until shared
+// memory holds them on the current device.  False where nothing fits.
+bool launch_shape(int n_instr, int n_loads, int n_scalars, int n_slots,
+                  int rows_per_thread, int* rows, int* chunk) {
+  int device = 0, limit = 48 * 1024;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  *rows = rows_per_thread > 0 ? rows_per_thread : kDefaultRows;
+  *chunk = n_instr < kMaxChunk ? (n_instr > 0 ? n_instr : 1) : kMaxChunk;
+  constexpr size_t kStaticSmem = 16;
+  const auto fits = [&] {
+    return smem_bytes(*rows, *chunk, n_loads, n_scalars, n_slots) +
+               kStaticSmem <= static_cast<size_t>(limit);
+  };
+  while (*rows > 1 && !fits()) *rows /= 2;
+  while (*chunk > kMinChunk && !fits()) *chunk /= 2;
+  return fits();
 }
 
 }  // namespace
 
-// program: n_instr instructions (int32 x 4 each); scalars: n_scalars words,
+// The launch's rows a thread and instructions a chunk (out[0], out[1]) for
+// a program of these sizes on the current device; 0, or
+// cudaErrorInvalidValue where its slots and tables do not fit.
+extern "C" int tstwo_constraint_eval_shape(int n_instr, int n_loads,
+                                           int n_scalars, int n_slots,
+                                           int rows_per_thread, int* out) {
+  return launch_shape(n_instr, n_loads, n_scalars, n_slots, rows_per_thread,
+                      &out[0], &out[1])
+             ? 0
+             : cudaErrorInvalidValue;
+}
+
+// program: n_instr instructions (int32 x 4 each); loads: its n_loads LOAD
+// rows (interaction, column, offset, 0), in program order (ops/
+// constraint_eval.py load_table); scalars: n_scalars words,
 // the denominator inverses from denom_off; ptrs, strides: the extended
 // columns of each of up to 8 interactions ([B, 2^log_n] rows at `stride`
 // words, null for an interaction the program does not read); acc: [4,
 // 2^log_n], updated in place.  n_slots: the program's slots.
 // rows_per_thread: 1, 2, 4 or 8, or 0 for the default; fewer are taken
-// where the slots do not fit in shared memory.  1 <= log_n <= 30.  Returns
-// the cudaError_t of the launch, or 0.
+// where the slots do not fit in shared memory, then a smaller chunk of the
+// program.  1 <= log_n <= 30.  Returns the cudaError_t of the launch, or 0.
 extern "C" int tstwo_constraint_eval(const int32_t* program, int n_instr,
+                                     const int32_t* loads, int n_loads,
                                      const int32_t* scalars, int n_scalars,
                                      int denom_off, const void* const* ptrs,
                                      const long long* strides, int32_t* acc,
@@ -448,7 +504,8 @@ extern "C" int tstwo_constraint_eval(const int32_t* program, int n_instr,
                                      int rows_per_thread, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (log_n < 1 || log_n > 30 || trace_log < 0 || trace_log > log_n ||
-      n_instr < 0 || n_scalars < 0 || n_slots < 0) {
+      n_instr < 0 || n_loads < 0 || n_loads > n_instr || n_scalars < 0 ||
+      n_slots < 0) {
     return cudaErrorInvalidValue;
   }
   Interactions tab;
@@ -456,36 +513,29 @@ extern "C" int tstwo_constraint_eval(const int32_t* program, int n_instr,
     tab.ptr[i] = static_cast<const uint32_t*>(ptrs[i]);
     tab.stride[i] = strides[i];
   }
-  int device = 0, limit = 48 * 1024;
-  if (cudaGetDevice(&device) == cudaSuccess) {
-    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  int rows = rows_per_thread > 0 ? rows_per_thread : kDefaultRows;
-  constexpr size_t kStaticSmem = 16;
-  while (rows > 1 && smem_bytes(rows, n_instr, n_scalars, n_slots) +
-                             kStaticSmem > static_cast<size_t>(limit)) {
-    rows /= 2;
-  }
-  const size_t smem = smem_bytes(rows, n_instr, n_scalars, n_slots);
-  if (smem + kStaticSmem > static_cast<size_t>(limit)) {
+  int rows = 0, chunk = 0;
+  if (!launch_shape(n_instr, n_loads, n_scalars, n_slots, rows_per_thread,
+                    &rows, &chunk)) {
     return cudaErrorInvalidValue;
   }
+  const size_t smem = smem_bytes(rows, chunk, n_loads, n_scalars, n_slots);
   const auto* prog = reinterpret_cast<const int4*>(program);
+  const auto* ld = reinterpret_cast<const int4*>(loads);
   const auto* sc = reinterpret_cast<const uint32_t*>(scalars);
   auto* out = reinterpret_cast<uint32_t*>(acc);
   switch (rows) {
     case 1:
-      return launch<1>(prog, n_instr, sc, n_scalars, denom_off, tab, out, log_n,
-                       trace_log, smem, stream);
+      return launch<1>(prog, n_instr, ld, n_loads, sc, n_scalars, denom_off,
+                         tab, out, log_n, trace_log, chunk, smem, stream);
     case 2:
-      return launch<2>(prog, n_instr, sc, n_scalars, denom_off, tab, out, log_n,
-                       trace_log, smem, stream);
+      return launch<2>(prog, n_instr, ld, n_loads, sc, n_scalars, denom_off,
+                         tab, out, log_n, trace_log, chunk, smem, stream);
     case 4:
-      return launch<4>(prog, n_instr, sc, n_scalars, denom_off, tab, out, log_n,
-                       trace_log, smem, stream);
+      return launch<4>(prog, n_instr, ld, n_loads, sc, n_scalars, denom_off,
+                         tab, out, log_n, trace_log, chunk, smem, stream);
     case 8:
-      return launch<8>(prog, n_instr, sc, n_scalars, denom_off, tab, out, log_n,
-                       trace_log, smem, stream);
+      return launch<8>(prog, n_instr, ld, n_loads, sc, n_scalars, denom_off,
+                         tab, out, log_n, trace_log, chunk, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }

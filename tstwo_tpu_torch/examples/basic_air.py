@@ -18,7 +18,7 @@ from ..pcs import PcsConfig
 from ..pcs.prover import CommitmentSchemeProver
 from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
-from ..poly.twiddles import precompute_twiddles
+from ..poly.twiddles import twiddles_for
 from ..prover import StarkProof, prove, verify
 from ..utils import entry_device, mesh_device, to_torch_u32
 
@@ -88,11 +88,8 @@ def prove_basic_air(log_num_rows: int = 4, config: PcsConfig = None,
         trace = [CircleEvaluation(domain, col) for col in columns]
 
     with span("twiddle_precompute"):
-        twiddles = precompute_twiddles(
-            CanonicCoset.new(
-                log_num_rows + CONSTRAINT_EVAL_BLOWUP_FACTOR
-                + config.fri_config.log_blowup_factor
-            ).circle_domain().half_coset)
+        twiddles = twiddles_for([TestEval(log_num_rows)],
+                                config.fri_config.log_blowup_factor)
 
     channel = merkle_ops.default_channel()
     commitment_scheme = CommitmentSchemeProver(

@@ -33,7 +33,7 @@ from ..pcs.prover import CommitmentSchemeProver
 from ..pcs.utils import TreeVec
 from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
-from ..poly.twiddles import precompute_twiddles
+from ..poly.twiddles import twiddles_for
 from ..prover import StarkProof, prove, verify
 from ..utils import entry_device, to_torch_u32
 
@@ -130,10 +130,9 @@ def prove_logup_lookup(log_size: int = 8, config: PcsConfig = None,
                              else generate_trace(log_size, seed, device))
         domain = CanonicCoset.new(log_size).circle_domain()
     with span("twiddle_precompute"):
-        twiddles = precompute_twiddles(
-            CanonicCoset.new(
-                log_size + 1 + config.fri_config.log_blowup_factor)
-            .circle_domain().half_coset)
+        twiddles = twiddles_for(
+            [LookupEval(log_size, LookupElements.dummy(RELATION_SIZE),
+                        pairs)], config.fri_config.log_blowup_factor)
     channel = Blake2sChannel()
     scheme = CommitmentSchemeProver(config, twiddles, device)
 
@@ -148,9 +147,9 @@ def prove_logup_lookup(log_size: int = 8, config: PcsConfig = None,
     tb.commit(channel)
 
     lookup_elements = LookupElements.draw(channel, RELATION_SIZE)
-    with span("interaction_trace"):
-        interaction_cols, claimed_sum = generate_interaction_trace(
-            log_size, val_col, mult_col, lookup_elements, pairs)
+    # LogupTraceGenerator opens the `interaction_trace` span
+    interaction_cols, claimed_sum = generate_interaction_trace(
+        log_size, val_col, mult_col, lookup_elements, pairs)
     tb = scheme.tree_builder()
     tb.extend_evals(interaction_cols)
     tb.commit(channel)

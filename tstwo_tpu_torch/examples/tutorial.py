@@ -16,7 +16,7 @@ from ..circle import CanonicCoset
 from ..pcs import PcsConfig
 from ..pcs.prover import CommitmentSchemeProver
 from ..poly.circle_poly import CircleEvaluation
-from ..poly.twiddles import precompute_twiddles
+from ..poly.twiddles import twiddles_for
 from ..utils import entry_device, to_torch_u32
 
 
@@ -52,9 +52,10 @@ def example_03_committing_to_the_trace_polynomials(log_num_rows: int = 4,
     domain, trace, _ = example_02_from_spreadsheet_to_trace_polynomials(
         log_num_rows, device)
     config = PcsConfig()
-    twiddles = precompute_twiddles(
-        CanonicCoset.new(log_num_rows + 1 + config.fri_config.log_blowup_factor)
-        .circle_domain().half_coset)
+    from .basic_air import TestEval
+
+    twiddles = twiddles_for([TestEval(log_num_rows)],
+                            config.fri_config.log_blowup_factor)
     channel = Blake2sChannel()
     scheme = CommitmentSchemeProver(config, twiddles, device)
     tb = scheme.tree_builder()

@@ -21,7 +21,7 @@ from ..pcs import PcsConfig
 from ..pcs.prover import CommitmentSchemeProver
 from ..pcs.verifier import CommitmentSchemeVerifier
 from ..poly.circle_poly import CircleEvaluation
-from ..poly.twiddles import precompute_twiddles
+from ..poly.twiddles import twiddles_for
 from ..prover import StarkProof, prove, verify
 from ..utils import entry_device, mesh_device, to_torch_u32
 
@@ -95,10 +95,9 @@ def prove_wide_fibonacci(log_n_rows: int = 6,
         domain = CanonicCoset.new(log_n_rows).circle_domain()
         trace = [CircleEvaluation(domain, col) for col in columns]
     with span("twiddle_precompute"):
-        twiddles = precompute_twiddles(
-            CanonicCoset.new(
-                log_n_rows + 1 + config.fri_config.log_blowup_factor)
-            .circle_domain().half_coset)
+        twiddles = twiddles_for(
+            [WideFibonacciEval(log_n_rows, sequence_length)],
+            config.fri_config.log_blowup_factor)
     channel = Blake2sChannel()
     scheme = CommitmentSchemeProver(config, twiddles, device, mesh=mesh)
     tb = scheme.tree_builder()

@@ -277,11 +277,15 @@ class QM31:
         return res
 
     def __add__(self, o: "QM31") -> "QM31":
+        if isinstance(o, M31):  # a base-field constant of an AIR
+            return self.add_m31(o)
         if not isinstance(o, QM31):
             return NotImplemented
         return QM31(self.c0 + o.c0, self.c1 + o.c1)
 
     def __sub__(self, o: "QM31") -> "QM31":
+        if isinstance(o, M31):
+            return self.sub_m31(o)
         if not isinstance(o, QM31):
             return NotImplemented
         return QM31(self.c0 - o.c0, self.c1 - o.c1)
@@ -291,6 +295,8 @@ class QM31:
 
     def __mul__(self, o: "QM31") -> "QM31":
         # (a+bu)(c+du) = (ac + R bd) + (ad + bc)u   (reference qm31.ts:300-305)
+        if isinstance(o, M31):
+            return self.mul_m31(o)
         if not isinstance(o, QM31):
             return NotImplemented  # defer to the other operand's __rmul__
         return QM31(

@@ -72,11 +72,12 @@ _SIGNATURES = {
     # prev, seg_ptrs, seg_strides, seg_rows, n_segs, out, n, stream
     "tstwo_poseidon_merkle_layer": (_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
                                     ctypes.c_longlong, _VP),
-    # program, n_instr, scalars, n_scalars, denom_off, ptrs, strides, acc,
-    # log_n, trace_log, n_slots, rows_per_thread, stream
-    "tstwo_constraint_eval": (_VP, ctypes.c_int, _VP, ctypes.c_int,
-                              ctypes.c_int, _VP, _VP, _VP, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP),
+    # program, n_instr, loads, n_loads, scalars, n_scalars, denom_off,
+    # ptrs, strides, acc, log_n, trace_log, n_slots, rows_per_thread, stream
+    "tstwo_constraint_eval": (_VP, ctypes.c_int, _VP, ctypes.c_int, _VP,
+                              ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, _VP),
 }
 
 # entry points that launch nothing: (argument types, result type)
@@ -88,6 +89,12 @@ _QUERIES = {
     # consts (host words), n_words -> cudaError_t of the copy to the
     # current device
     "tstwo_poseidon_set_constants": ((_VP, ctypes.c_int), ctypes.c_int),
+    # n_instr, n_loads, n_scalars, n_slots, rows_per_thread, out (rows,
+    # chunk) -> cudaError_t
+    "tstwo_constraint_eval_shape": ((ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)),
+                                    ctypes.c_int),
 }
 
 LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,

@@ -18,6 +18,10 @@ trace) vanishing-denominator inverses, `denom[row >> trace_log]` for row
 sum_k constraint_k * coefficient_k on every row, multiplies it by the row's
 denominator inverse and adds it into the accumulator [4, n].
 
+The kernel also reads the program's load table (`load_table`): one row
+(interaction, column, offset, 0) a LOAD, in program order, from which it
+starts each column read ahead of the instruction that stores it.
+
 `evaluate` launches the kernel for CUDA tensors (`evaluate_cuda`, in place)
 and runs the plain version for CPU tensors (`evaluate_plain`: one
 vectorised operator an instruction over all rows, in int64).  No TPU
@@ -113,6 +117,17 @@ def offset_source_rows(rows: torch.Tensor, trace_log: int, eval_log: int,
         pos = torch.where(rev < half, (rev + step) & (half - 1),
                           ((rev - step) & (half - 1)) + half)
     return bit_reverse(pos, eval_log)
+
+
+def load_table(code) -> torch.Tensor:
+    """int32 [L, 4] (interaction, column, mask offset, 0), one row for each
+    LOAD of the program `code` (int32 [I, 4] on the host), in order."""
+    host = torch.as_tensor(code).to(torch.int64)
+    ops, aux = host[:, 0] & 0xff, host[:, 0] >> 8
+    rows = (ops == LOAD).nonzero().flatten()
+    return torch.stack([host[rows, 2], host[rows, 3], aux[rows],
+                        torch.zeros_like(rows)], dim=1).to(
+        torch.int32).reshape(-1, 4)
 
 
 def _check(code: torch.Tensor, stacks: Sequence[Optional[torch.Tensor]],
@@ -217,14 +232,15 @@ _Ptrs = ctypes.c_void_p * MAX_INTERACTIONS
 _Strides = ctypes.c_longlong * MAX_INTERACTIONS
 
 
-def evaluate_cuda(code: torch.Tensor, n_slots: int,
+def evaluate_cuda(code: torch.Tensor, loads: torch.Tensor, n_slots: int,
                   stacks: Sequence[Optional[torch.Tensor]],
                   scalars: torch.Tensor, denom_off: int, trace_log: int,
                   eval_log: int, accumulator: torch.Tensor,
                   rows_per_thread: int = 0) -> None:
     """Launch csrc/constraint_eval.cu once: the program over every row,
     its result added into `accumulator` (int32 [4, n] on the card) in
-    place.  No synchronisation.  `rows_per_thread` (1, 2, 4, 8; 0: the
+    place.  No synchronisation.  `loads` is the program's `load_table` on
+    the card (`ConstraintProgram.device_loads`).  `rows_per_thread` (1, 2, 4, 8; 0: the
     kernel's default) sets how many rows one decode serves; the kernel
     takes fewer by itself where a program's slots do not fit in shared
     memory, and the card tests name each to cover those variants."""
@@ -232,6 +248,7 @@ def evaluate_cuda(code: torch.Tensor, n_slots: int,
     _check(code, stacks, scalars, n)
     device = accumulator.device
     kernels.check_cuda_tensor(code, "program")
+    kernels.check_cuda_tensor(loads, "load table")
     kernels.check_cuda_tensor(scalars, "scalars")
     kernels.check_cuda_tensor(accumulator, "accumulator")
     if tuple(accumulator.shape) != (4, n):
@@ -247,23 +264,37 @@ def evaluate_cuda(code: torch.Tensor, n_slots: int,
                              f"on {device}")
         ptrs[i], strides[i] = s.data_ptr(), s.stride(0)
     kernels.launch("constraint_eval", "constraint_eval", device,
-                   code.data_ptr(), code.shape[0], scalars.data_ptr(),
+                   code.data_ptr(), code.shape[0], loads.data_ptr(),
+                   loads.shape[0], scalars.data_ptr(),
                    scalars.numel(), denom_off, ptrs, strides,
                    accumulator.data_ptr(), eval_log, trace_log, n_slots,
                    rows_per_thread)
 
 
-def evaluate(code: torch.Tensor, n_slots: int,
+def launch_shape(n_instr: int, n_loads: int, n_scalars: int, n_slots: int,
+                 rows_per_thread: int = 0) -> tuple:
+    """(rows a thread, instructions a chunk) that csrc/constraint_eval.cu
+    takes for a program of these sizes on the current CUDA device."""
+    out = (ctypes.c_int * 2)()
+    err = kernels.entry("constraint_eval_shape")(
+        n_instr, n_loads, n_scalars, n_slots, rows_per_thread, out)
+    if err:
+        raise RuntimeError(f"a program of {n_slots} slots, {n_loads} loads "
+                           f"and {n_scalars} scalars does not fit a block")
+    return out[0], out[1]
+
+
+def evaluate(code: torch.Tensor, loads: torch.Tensor, n_slots: int,
              stacks: Sequence[Optional[torch.Tensor]], scalars: torch.Tensor,
              denom_off: int, trace_log: int, eval_log: int,
              accumulator: torch.Tensor) -> torch.Tensor:
     """Add the program's quotients into `accumulator` [4, n]: the kernel
-    in place for a CUDA accumulator, the plain version for a CPU one.
-    Returns the accumulator (the same tensor on the card, a new one on the
-    CPU)."""
+    in place for a CUDA accumulator, the plain version (which reads
+    `code` alone, not the load table `loads`) for a CPU one.  Returns the
+    accumulator (the same tensor on the card, a new one on the CPU)."""
     if kernels.on_cuda(accumulator):
-        evaluate_cuda(code, n_slots, stacks, scalars, denom_off, trace_log,
-                      eval_log, accumulator)
+        evaluate_cuda(code, loads, n_slots, stacks, scalars, denom_off,
+                      trace_log, eval_log, accumulator)
         return accumulator
     return qm31.add(accumulator, evaluate_plain(
         code, n_slots, stacks, scalars, denom_off, trace_log, eval_log))

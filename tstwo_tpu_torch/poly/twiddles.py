@@ -13,12 +13,12 @@ twiddle buffers per (domain size, direction, device).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..circle import Coset
+from ..circle import CanonicCoset, Coset
 from ..ops import m31
 from ..utils import bit_reverse_permutation, entry_device, to_torch_u32
 
@@ -115,6 +115,16 @@ def precompute_twiddles(coset: Coset) -> TwiddleTree:
                        ilayers_np=ilayers_np)
     _CACHE[key] = tree
     return tree
+
+
+def twiddles_for(evals: Sequence, log_blowup_factor: int) -> TwiddleTree:
+    """The twiddles of a prove of the components of `evals` (FrameworkEvals
+    or components): they reach the largest domain it uses, the composition
+    polynomial's, of the largest constraint bound, extended by the
+    blowup."""
+    bound = max(e.max_constraint_log_degree_bound() for e in evals)
+    return precompute_twiddles(CanonicCoset.new(
+        bound + log_blowup_factor).circle_domain().half_coset)
 
 
 def domain_line_twiddles(domain_log_size: int, tree: TwiddleTree,
