@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card at the shapes its path gives it, then
-drives nine paths, each with the launch counts set to 0 just before it and
+drives ten paths, each with the launch counts set to 0 just before it and
 read just after:
 
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
@@ -29,6 +29,11 @@ read just after:
     (stwo-cairo's secure_pcs_config: pow_bits 26, 70 queries), which must
     launch the grind kernel, its nonce held against the plain scan on the
     card;
+  * the DEEP quotients (phase 8d, `--only quotients` alone): the kernel
+    against its plain version at the benchmark cells' quotient groups,
+    timed beside its byte bound, then a 96-bit prove of each cell's
+    recipe, which must launch it once a group (twice a proof) over the
+    committed columns (`quotient_columns` 104 and 1300);
   * the roofline probes (tstwo_tpu_torch/measure_roofline.py), which run
     the M31 probe kernels;
   * LogUp: the golden 2^8 proof against the committed JAX proof, 2^12 CUDA
@@ -121,6 +126,8 @@ REPLACES = {
                              "(jitted program)",
     "constraint_eval": "tstwo_tpu/constraint_framework/__init__.py:545 "
                        "_domain_kernel (jitted program)",
+    "accumulate_quotients": "tstwo_tpu/pcs/quotients.py:149 "
+                            "_accumulate_quotients_kernel (jitted program)",
 }
 # One H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device memory; 67
 # TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x 2 (a
@@ -753,6 +760,10 @@ def main() -> None:
     # program's row carries that prove's launches, the others the counts
     # below
     poseidon2_phase(device, rows)
+    # 8d. the DEEP quotients: the kernel at the benchmark cells' groups
+    # against the plain version, and a 96-bit prove of each cell's recipe
+    counts["accumulate_quotients"] = quotients_phase(device, rows)[
+        "accumulate_quotients"]
 
     # 9. the roofline probes: the M31 probe kernels' path
     launches = roofline(device)
@@ -786,7 +797,8 @@ def main() -> None:
 # proves forbid it, the 96-bit prove requires it beside these.
 MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
                      "merkle_layer", "merkle_tail", "deinterleave",
-                     "blake2s_transcript", "constraint_eval")
+                     "blake2s_transcript", "constraint_eval",
+                     "accumulate_quotients")
 SECURE_POW_BITS, SECURE_QUERIES = 26, 70  # stwo-cairo's secure_pcs_config
 
 
@@ -1773,6 +1785,144 @@ def poseidon2_phase(device, rows: list, log_n: int = 17,
     return launches
 
 
+# the quotient groups of the benchmark's cells: (columns, log size,
+# columns also sampled at z - g).  wf100_b2s.2e20: the 100 trace columns at
+# 2^21, the composition's 4 at 2^22; p2_b2s.2e17: 1264 trace and 32
+# interaction columns at 2^18, the last 4 also at z - g, the composition's
+# 4 at 2^20.
+QUOTIENT_GROUPS = ((100, 21, 0), (4, 22, 0), (1296, 18, 4), (4, 20, 0))
+
+
+def quotients_phase(device, rows: list, config=None) -> dict:
+    """Phase 8d: the DEEP quotients (csrc/quotients.cu).  The kernel at
+    each group of QUOTIENT_GROUPS against the plain version
+    (`_accumulate_rows`, on the card) bit for bit, timed warm and cold
+    behind the spin kernel beside its bound (each column value read once,
+    the [4, n] result written once) and the plain version's time.  Then
+    one 96-bit prove of each cell's recipe, wide Fibonacci 2^20 x 100 and
+    Poseidon2 2^17, warm, under the span tree: one launch a group (2 a
+    proof) and `quotient_columns` the committed columns (104 and 1300);
+    the synchronised `fri_quotients` span of a third prove.  Returns the
+    launch counts of the Poseidon2 prove."""
+    import numpy as np
+    import torch
+
+    from tstwo_tpu_torch import kernels, tracing
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.circle import CanonicCoset, CirclePoint
+    from tstwo_tpu_torch.examples.poseidon2 import prove_poseidon2
+    from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
+    from tstwo_tpu_torch.fields import QM31
+    from tstwo_tpu_torch.fri import FriConfig
+    from tstwo_tpu_torch.measure_roofline import time_call
+    from tstwo_tpu_torch.pcs import PcsConfig
+    from tstwo_tpu_torch.pcs import quotients as q
+
+    rng = np.random.default_rng(20)
+    gen = torch.Generator(device).manual_seed(20)
+
+    def qm31():
+        return QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+
+    for k, log, shifted in QUOTIENT_GROUPS:
+        t0 = time.perf_counter()
+        n = 1 << log
+        cols = torch.randint(0, P, (k, n), dtype=torch.int32, device=device,
+                             generator=gen)
+        z = CirclePoint.get_random_point(Blake2sChannel())
+        g = CanonicCoset.new(log - 1).step().into_ef(QM31.from_base)
+        samples = [[q.PointSample(z, qm31())] for _ in range(k)]
+        for col in samples[k - shifted:]:
+            col.append(q.PointSample(z - g, qm31()))
+        batches = q.ColumnSampleBatch.new_vec(samples)
+        alpha = qm31()
+        domain = CanonicCoset.new(log).circle_domain()
+        columns = list(cols)
+
+        def run():
+            return q.accumulate_quotients_cuda(domain, columns, alpha, batches)
+
+        xs, ys = q.domain_points_bitrev(domain, device)
+        want, plain_s = timed(lambda: q._accumulate_rows(cols, xs, ys,
+                                                         batches, alpha))
+        err = max_abs_err(run(), want)
+        if err:
+            fail(f"accumulate_quotients [{k},2^{log}] differs from the plain "
+                 f"version (max_abs_err {err})")
+        del want, xs, ys
+        # the kernel alone (its table uploaded once), then the whole call:
+        # the constants packed on the host, the upload and the launch
+        pack = q.pack_quotient_constants(batches, alpha)
+        table = q._device_table(pack, [c.data_ptr() for c in columns], device)
+        out = torch.empty((4, n), dtype=torch.int32, device=device)
+        timing = time_call(lambda: q._launch(table, k, pack, domain, 0, out))
+        call = time_call(run, cold=False)
+        n_bytes = 4 * k * n + 16 * n
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        shape = f"[{k},2^{log}], {len(batches)} batch(es)"
+        rows.append({"name": "accumulate_quotients", "shape": shape,
+                     "route": "cuda", "source": CSRC + "quotients.cu",
+                     "replaces": REPLACES["accumulate_quotients"],
+                     "max_abs_err": 0, "ms": timing["ms"],
+                     "cold_ms": timing["cold_ms"],
+                     "host_us": call["host_us"], "call_ms": call["ms"],
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes", "plain_ms": plain_s * 1e3,
+                     "library_ms": None, "library_host_us": None})
+        phase(f"kernel accumulate_quotients {shape}",
+              time.perf_counter() - t0,
+              f"exact against the plain version; kernel {timing['ms']:.4f} "
+              f"ms (cold {timing['cold_ms']:.4f} ms), bound {bound_ms:.4f} "
+              f"ms ({n_bytes / 1e6:.1f} MB; "
+              f"{100 * bound_ms / timing['ms']:.1f}% of it warm, "
+              f"{100 * bound_ms / timing['cold_ms']:.1f}% cold); the whole "
+              f"call {call['ms']:.4f} ms, host {call['host_us']:.1f} us; "
+              f"plain {plain_s * 1e3:.1f} ms")
+        del cols, columns
+
+    config = config or PcsConfig(SECURE_POW_BITS,
+                                 FriConfig(0, 1, SECURE_QUERIES))
+    recipes = (("wide_fibonacci 20x100", 104, lambda seed:
+                prove_wide_fibonacci(20, 100, config, seed=seed,
+                                     device=device)),
+               ("poseidon2 17", 1300, lambda seed:
+                prove_poseidon2(17, config, seed=seed, device=device)))
+    for name, n_cols, prove in recipes:
+        t0 = time.perf_counter()
+        prove(1)
+        kernels.reset_launches()
+        tracing.reset()
+        tracing.enable(sync=False)
+        try:
+            with tracing.request(0):
+                _, wall = timed(lambda: prove(2))
+        finally:
+            tracing.disable()
+        launches = launch_counts(f"quotients {name} secure",
+                                 MAIN_PATH_KERNELS + ("blake2s_grind",))
+        columns = tracing.counts().get(0, {}).get("quotient_columns")
+        tracing.reset()
+        tracing.enable()
+        try:
+            timed(lambda: prove(3))
+        finally:
+            tracing.disable()
+        span_ms = 1e3 * tracing.totals().get("fri_quotients", 0.0)
+        tracing.reset()
+        if launches["accumulate_quotients"] != 2 or columns != n_cols:
+            fail(f"the warm {name} prove launched accumulate_quotients "
+                 f"{launches['accumulate_quotients']} times over {columns} "
+                 f"columns (2 and {n_cols} expected)")
+        phase(f"quotients prove {name} secure", wall,
+              f"warm prove {wall:.3f} s: accumulate_quotients launched "
+              f"twice, quotient_columns {columns}; synced fri_quotients "
+              f"{span_ms:.3f} ms; {time.perf_counter() - t0:.1f} s in all")
+    for row in rows:
+        if row["name"] == "accumulate_quotients":
+            row["launches"] = launches["accumulate_quotients"]
+    return launches
+
+
 def roofline(device) -> dict:
     """Phase 9: tstwo_tpu_torch.measure_roofline on the card, one figure a
     line; returns the launch counts of that path."""
@@ -1993,7 +2143,7 @@ def poseidon_proof_fields(proof) -> dict:
 POSEIDON_MID_LOG = 6  # the CPU-plain prove there takes about half a minute
 # what a Poseidon252 prove must launch, and the Blake2s family it must not
 POSEIDON_KERNELS = ("poseidon_merkle_layer", "cfft_forward", "cfft_inverse",
-                    "deinterleave", "constraint_eval")
+                    "deinterleave", "constraint_eval", "accumulate_quotients")
 BLAKE2S_KERNELS = ("blake2s", "merkle_layer", "merkle_tail", "blake2s_grind",
                    "blake2s_transcript")
 
@@ -2108,7 +2258,7 @@ MESH_GROUPS = (("blake2s", "nccl", 1, 18, 64), ("blake2s", "gloo", 2, 16, 32),
 MESH_KERNELS = {
     "blake2s": (("cfft_forward", "cfft_inverse", "merkle_layer",
                  "merkle_tail", "deinterleave", "blake2s_transcript",
-                 "constraint_eval"), ()),
+                 "constraint_eval", "accumulate_quotients"), ()),
     "poseidon252": (POSEIDON_KERNELS, BLAKE2S_KERNELS)}
 MESH_RANK_TIMEOUT_S = 300
 
@@ -2245,7 +2395,7 @@ def mesh_phase(card: str, single_json: dict) -> None:
 def constraint_eval_only(which: str = "constraint_eval") -> None:
     """`--only constraint_eval`: the card, the build and phase 8b alone,
     then the phase's rows of the kernel table; `--only poseidon2`: phase
-    8c instead."""
+    8c instead; `--only quotients`: phase 8d."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -2262,11 +2412,12 @@ def constraint_eval_only(which: str = "constraint_eval") -> None:
     phase("build", time.perf_counter() - t0,
           f"nvcc {kernels.BUILD_INFO['seconds']:.1f} s")
     for line in kernels.BUILD_INFO.get("ptxas", "").splitlines():
-        if "constraint_eval" in line or "registers" in line:
+        if which in line or "registers" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = []
-    run_phase = (constraint_eval_phase if which == "constraint_eval"
-                 else poseidon2_phase)
+    run_phase = {"constraint_eval": constraint_eval_phase,
+                 "poseidon2": poseidon2_phase,
+                 "quotients": quotients_phase}[which]
     launches = run_phase(torch.device("cuda", 0), rows)
     for row in rows:
         row.setdefault("launches", launches["constraint_eval"])
@@ -2277,7 +2428,7 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         mesh_rank(sys.argv[1:])
     elif sys.argv[1:2] == ["--only"] and sys.argv[2:] in (
-            ["constraint_eval"], ["poseidon2"]):
+            ["constraint_eval"], ["poseidon2"], ["quotients"]):
         constraint_eval_only(sys.argv[2])
     else:
         main()

@@ -434,6 +434,12 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
                              program.n_slots, stacks, scalars,
                              program.denom_off, 5, 6,
                              _rand(rng, (4, 1 << 6), device))
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.pcs import quotients
+
+    cols, batches, alpha = _quotient_case(7, 2, 6, 1, device)
+    quotients.quotient_rows(CanonicCoset.new(6).circle_domain(), list(cols),
+                            alpha, batches)
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
                                 "blake2s": 2, "merkle_layer": 1,
                                 "merkle_tail": 1, "blake2s_grind": 1,
@@ -441,7 +447,8 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
                                 "m31_mul": 1, "m31_mul_chain": 1,
                                 "hades_permutation": 2,
                                 "poseidon_merkle_layer": 2,
-                                "constraint_eval": 1}
+                                "constraint_eval": 1,
+                                "accumulate_quotients": 1}
 
 
 def _grind_digests():
@@ -853,3 +860,122 @@ def test_fri_commit_on_the_card_equals_commit_host_without_a_sync(
     assert prover.first_layer.merkle_tree.root() == \
         host.first_layer.merkle_tree.root()
     assert prover.last_layer_poly.coeffs == host.last_layer_poly.coeffs
+
+
+def _quotient_case(seed, k, log, n_batches, device, every=3, shuffle=False,
+                   base_point=False):
+    """k random card columns of 2^log values and their sample batches:
+    every column at z, every `every`-th column also at z - g, and for
+    each further batch every column at z + b g; `base_point`: the last
+    batch at a point of the base field (all its denominators 0)."""
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.circle import CanonicCoset, CirclePoint
+    from tstwo_tpu_torch.fields import QM31
+    from tstwo_tpu_torch.pcs.quotients import ColumnSampleBatch, PointSample
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device).manual_seed(seed)
+    cols = torch.randint(0, P, (k, 1 << log), dtype=torch.int32,
+                         device=device, generator=gen)
+    z = CirclePoint.get_random_point(Blake2sChannel())
+    g = CanonicCoset.new(log).step().into_ef(QM31.from_base)
+    points = [z, z - g]
+    for _ in range(n_batches - 2):
+        points.append(points[-1] + g if len(points) > 2 else z + g)
+    if base_point:
+        points[n_batches - 1] = CanonicCoset.new(log).at(1).into_ef(
+            QM31.from_base)
+
+    def value():
+        return QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+
+    samples = [[PointSample(points[0], value())] for _ in range(k)]
+    for b in range(1, n_batches):
+        for i in range(k):
+            if b > 1 or i % every == 0:
+                samples[i].append(PointSample(points[b], value()))
+    batches = ColumnSampleBatch.new_vec(samples)
+    if shuffle:
+        for b in batches:
+            order = rng.permutation(len(b.columns_and_values))
+            b.columns_and_values = [b.columns_and_values[i] for i in order]
+    alpha = value()
+    return cols, batches, alpha
+
+
+def _quotients_plain(cols, batches, alpha, log, device):
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.pcs import quotients
+
+    xs, ys = quotients.domain_points_bitrev(
+        CanonicCoset.new(log).circle_domain(), device)
+    return quotients._accumulate_rows(cols, xs, ys, batches, alpha)
+
+
+@pytest.mark.parametrize("k,log,n_batches,every,shuffle,size", [
+    (1, 4, 1, 3, False, 1), (3, 4, 2, 3, False, 1), (3, 5, 6, 2, True, 1),
+    (1, 13, 2, 1, False, 2), (3, 16, 2, 3, True, 4), (104, 21, 1, 3, False, 1),
+    (104, 22, 2, 3, False, 2), (4, 20, 1, 3, False, 1), (4, 22, 1, 3, False, 1),
+    (1300, 18, 2, 325, False, 1), (1300, 18, 2, 1, True, 2),
+    (1300, 4, 2, 1, False, 1)])
+def test_quotients_kernel_matches_plain(device, k, log, n_batches, every,
+                                        shuffle, size):
+    """K = 1 to 1300 columns of 2^4 to 2^22 values; one, two and six
+    batches (two joint inversions); entries past one chunk of shared
+    memory (1300 columns in both batches); each rank's slice of a mesh of
+    `size`, told its first row."""
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.pcs import quotients
+
+    cols, batches, alpha = _quotient_case(100 * log + k, k, log, n_batches,
+                                          device, every, shuffle)
+    domain = CanonicCoset.new(log).circle_domain()
+    want = _quotients_plain(cols, batches, alpha, log, device)
+    m = (1 << log) // size
+    for rank in range(size):
+        before = kernels.LAUNCHES["accumulate_quotients"]
+        got = quotients.accumulate_quotients_cuda(
+            domain, list(cols[:, rank * m:(rank + 1) * m]), alpha, batches,
+            row0=rank * m)
+        assert kernels.LAUNCHES["accumulate_quotients"] == before + 1
+        _exact(got, want[:, rank * m:(rank + 1) * m])
+
+
+def test_quotients_kernel_takes_zero_denominators(device):
+    """A batch at a point of the base field: every denominator 0, its
+    inverse 0 (the plain version's convention), beside a sound batch in
+    the same joint inversion."""
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.pcs import quotients
+
+    cols, batches, alpha = _quotient_case(5, 3, 8, 3, device,
+                                          base_point=True)
+    got = quotients.accumulate_quotients_cuda(
+        CanonicCoset.new(8).circle_domain(), list(cols), alpha, batches)
+    _exact(got, _quotients_plain(cols, batches, alpha, 8, device))
+
+
+def test_quotients_wrapper_refuses_what_the_kernel_does_not_take(device):
+    from tstwo_tpu_torch.circle import CanonicCoset
+    from tstwo_tpu_torch.pcs import quotients
+
+    cols, batches, alpha = _quotient_case(6, 2, 6, 1, device)
+    domain = CanonicCoset.new(6).circle_domain()
+
+    def call(columns, bs=batches, row0=0, dom=domain):
+        quotients.accumulate_quotients_cuda(dom, columns, alpha, bs, row0)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        call([cols[0].cpu(), cols[1]])
+    with pytest.raises(ValueError, match="contiguous"):
+        call([cols[0], torch.stack([cols[1], cols[1]], 1).reshape(-1)[::2]])
+    wide = torch.zeros(65, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="16-byte"):
+        call([cols[0], wide[1:]])
+    with pytest.raises(ValueError, match="expected \\[64\\]"):
+        call([cols[0], cols[1, :32]])
+    with pytest.raises(ValueError, match="power of two"):
+        call([cols[0, 16:48], cols[1, 16:48]], row0=16)
+    many = batches * 65
+    with pytest.raises(ValueError, match="sample batches"):
+        call(list(cols), bs=many)

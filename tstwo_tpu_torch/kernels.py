@@ -15,9 +15,11 @@ of proof-of-work nonces as `blake2s_grind`, a Fiat-Shamir transcript step
 as `blake2s_transcript`),
 ops/fri_ops.py, ops/m31_kernels.py, ops/poseidon252.py (the Hades
 permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
-as `poseidon_merkle_layer`) and ops/constraint_eval.py (a component's
-constraint program over its evaluation domain as `constraint_eval`) add
-one per call of the C entry point, and nowhere else.
+as `poseidon_merkle_layer`), ops/constraint_eval.py (a component's
+constraint program over its evaluation domain as `constraint_eval`) and
+pcs/quotients.py (the DEEP quotients of a group of columns of one size as
+`accumulate_quotients`) add one per call of the C entry point, and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cfft.cu", "cfft_forward.cu", "blake2s.cu", "deinterleave.cu",
-           "m31_kernels.cu", "poseidon252.cu", "constraint_eval.cu")
+           "m31_kernels.cu", "poseidon252.cu", "constraint_eval.cu",
+           "quotients.cu")
 HEADERS = ("m31.cuh", "cfft_pass.cuh", "segments.cuh", "felt252.cuh",
            "blake2s.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
@@ -78,6 +81,12 @@ _SIGNATURES = {
                               ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, _VP),
+    # table, n_cols, n_batches, n_entries, points (host words), log_n,
+    # row0, n_rows, out, stream
+    "tstwo_accumulate_quotients": (_VP, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _VP, ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_longlong, _VP,
+                                   _VP),
 }
 
 # entry points that launch nothing: (argument types, result type)
@@ -101,7 +110,8 @@ LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
             "merkle_layer": 0, "merkle_tail": 0, "blake2s_grind": 0,
             "blake2s_transcript": 0, "deinterleave": 0,
             "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
-            "poseidon_merkle_layer": 0, "constraint_eval": 0}
+            "poseidon_merkle_layer": 0, "constraint_eval": 0,
+            "accumulate_quotients": 0}
 
 _lib = None
 _entries: dict = {}  # entry name -> bound C function, filled by lib()

@@ -4,9 +4,10 @@ rank's slice of the point axis.
 The quotient accumulation, the FRI folds and the Merkle leaf hashing are
 row-elementwise over the point axis (a fold pairs adjacent bit-reversed
 entries, which lie in one slice), so each rank runs them on its own
-slice with no traffic: the folds go through `ops.fri_ops`, whose
-deinterleave is csrc/deinterleave.cu on a CUDA slice, and the leaf hashing
-through the Blake2s layer kernel.  Only the FFT (parallel/fft.py) and the
+slice with no traffic: the quotients through csrc/quotients.cu on a CUDA
+slice, the folds through `ops.fri_ops`, whose deinterleave is
+csrc/deinterleave.cu on a CUDA slice, and the leaf hashing through the
+Blake2s layer kernel.  Only the FFT (parallel/fft.py) and the
 top of a Merkle tree (parallel/merkle.py) talk across ranks.
 
 A column argument here is either whole (it is sliced) or already the
@@ -44,28 +45,21 @@ def _local(mesh: Mesh, arr: torch.Tensor, n: int) -> torch.Tensor:
     return arr.to(mesh.device)
 
 
-def local_domain_points(mesh: Mesh, domain):
-    """(x, y) of this rank's slice of `domain` in bit-reversed order."""
-    from ..pcs.quotients import domain_points_bitrev
-
-    xs, ys = domain_points_bitrev(domain, mesh.device)
-    return shard_points(mesh, xs), shard_points(mesh, ys)
-
-
 def sharded_accumulate_quotients(mesh: Mesh, domain,
                                  columns: Sequence[torch.Tensor],
                                  random_coeff, sample_batches,
                                  log_blowup_factor: int):
     """Quotient accumulation on this rank's slice of `domain`: a
-    SecureEvaluation of the rank's [4, n/D] values (its `mesh` set)."""
-    from ..pcs.quotients import _accumulate_rows
+    SecureEvaluation of the rank's [4, n/D] values (its `mesh` set).  The
+    single-device function on the slice, told its first row, from which
+    the kernel makes the slice's points."""
+    from ..pcs.quotients import quotient_rows
     from ..poly.circle_poly import SecureEvaluation
 
     n = domain.size()
-    xs, ys = local_domain_points(mesh, domain)
-    values = _accumulate_rows(
-        torch.stack([_local(mesh, c, n) for c in columns]), xs, ys,
-        sample_batches, random_coeff)
+    values = quotient_rows(domain, [_local(mesh, c, n) for c in columns],
+                           random_coeff, sample_batches,
+                           row0=mesh.local_range(n)[0])
     return SecureEvaluation(domain, values, mesh=mesh)
 
 
