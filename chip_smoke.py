@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of tstwo_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only constraint_eval|poseidon2|quotients]
 
-Builds the CUDA kernels from tstwo_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card at the shapes its path gives it, then
-drives ten paths, each with the launch counts set to 0 just before it and
-read just after:
+Builds the CUDA kernels from tstwo_tpu_torch/csrc and times each against
+its plain PyTorch version on the card at the shapes its path gives it (the
+rows, their inputs and the plain versions are tests/torch_cuda_cases.py's,
+which tests/test_torch_cuda.py holds exactly; each row here is exact
+too), then drives the paths, each with the launch counts set to 0 just
+before it and read just after.  The phases run from PHASES; `--only NAME`
+runs the card, the build and that phase alone:
 
+  * the M31 kernels through their dispatch (`ops.m31_kernels.mul` and
+    `mul_chain`, the roofline probes' path), launches counted;
   * wide Fibonacci (the main path): the golden 2^8 x 8 proof against the
     committed JAX proof, a 2^12 x 32 CUDA proof against the CPU one, then
     proves and verifies 2^16 x 32 and 2^18 x 64 (pow_bits 5: the grind
@@ -29,13 +34,17 @@ read just after:
     (stwo-cairo's secure_pcs_config: pow_bits 26, 70 queries), which must
     launch the grind kernel, its nonce held against the plain scan on the
     card;
-  * the DEEP quotients (phase 8d, `--only quotients` alone): the kernel
+  * constraint programs (phase 8b, `--only constraint_eval`): LogUp at
+    2^21 and wide Fibonacci at 2^21 x 100 (each rows-per-thread variant,
+    the eager DomainEvaluator beside it), then a 96-bit wide Fibonacci
+    2^20 x 100 prove that launches the kernel once and whose composition
+    equals the eager evaluator's; Poseidon2 (8c, `--only poseidon2`): its
+    19,899-instruction program at 2^19 x 1296, then a 96-bit 2^17 prove;
+  * the DEEP quotients (phase 8d, `--only quotients`): the kernel
     against its plain version at the benchmark cells' quotient groups,
     timed beside its byte bound, then a 96-bit prove of each cell's
     recipe, which must launch it once a group (twice a proof) over the
     committed columns (`quotient_columns` 104 and 1300);
-  * the roofline probes (tstwo_tpu_torch/measure_roofline.py), which run
-    the M31 probe kernels;
   * LogUp: the golden 2^8 proof against the committed JAX proof, 2^12 CUDA
     proofs against CPU ones for both `pairs` modes, then proves and
     verifies 2^16 and 2^20;
@@ -76,18 +85,17 @@ many launches between two CUDA events (warm L2), `cold_ms` its time after
 64 MiB were written, `host_us` what one call costs the enqueueing thread
 (tstwo_tpu_torch/measure_roofline.py::time_call); `plain_ms` the plain
 PyTorch version and `library_ms` (`library_host_us`) the PyTorch call for
-the same function, where one exists, timed the same way; `bound_ms` the least time the card
-could take, the larger of the bytes moved once over HBM_BYTES_PER_S and
-the integer operations over INT32_OPS_PER_S, and `bound_by` which of the
-two; `launches` the count from the path that runs the kernel.  A CFFT row
-also has `passes`, the kernel launches of one transform (checked against
+the same function, where one exists, timed the same way; `bound_ms` the
+least time the card could take, the larger of the bytes the function
+moves once over HBM_BYTES_PER_S and the integer operations it does over
+INT32_OPS_PER_S (the case's `cost`), and `bound_by` which of the two, and
+any further bound of the case beside it as `<name>_ms`; `launches` the
+count from the path that runs the kernel.  A CFFT row also has `passes`,
+the kernel launches of one transform, counted in this run and held to
 `ops.fft.cfft_plan` and the limits 1 / 2 / 3 up to 2^11 / 2^22 / 2^30
-points), and `columns_per_block`, the columns of the batch a block of each
-pass walks over with its twiddles in registers.  A forward CFFT from a
-coefficient length m < n is bound by what that function needs: m words
-read a column and log2(m) layers of butterflies (the layers above only
-copy); `bound_full_n_ms` is the bound of the full transform of n points
-beside it, the same whatever implements the zero-extension.
+points, and `columns_per_block`, the columns of the batch a block of each
+pass walks over with its twiddles in registers.  A quotient row's `ms` is
+the launch alone; its `host_us` and `call_ms` are the whole call's.
 """
 from __future__ import annotations
 
@@ -96,6 +104,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port_wide_fib_log8x8_seed0.json"
@@ -136,58 +145,7 @@ REPLACES = {
 # peak is taken as a quarter of that figure: 1.675e13 operations/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
-# One Blake2s compress of a 64-byte block is 80 G-mixes of 12 operations
-# (4 adds, two of them of three inputs, 4 xors, 4 funnel shifts) and 16 xors
-# to fold the state: 976.  Only the xors and shifts are bound to the integer
-# lanes: an add can issue as a multiply-add on the float lanes beside them
-# (the kernel retires more than 1.675e13 of the 976 a second, which shows
-# it), so the bound counts the 8 xors and shifts of a G-mix and the fold.
-B2S_OPS_PER_BLOCK = 80 * 8 + 16
-# One M31 butterfly: a product (a wide multiply, two folds and a conditional
-# subtract: 9), a modular add (3) and a modular subtract (4).
-BUTTERFLY_OPS = 16
-M31_MUL_OPS = 9
-# Felt252 arithmetic, counted as the function needs it and not as
-# csrc/felt252.cuh writes it.  A 32 x 32 product added into a 64-bit sum is
-# one instruction (a wide multiply-add): a product of two felts of eight
-# words is 64 of them, a square 36 (the 28 cross products once, doubled, and
-# the 8 squares).  Reducing the 16-word result modulo p = 2^251 + 17 * 2^192
-# + 1 is 8 steps of about 3 operations (p == 1 mod 2^32 makes the Montgomery
-# factor a negation and m * p a product by 17 and two shifted adds).  A
-# modular add or subtract is 8 adds with carry and 8 for the conditional
-# subtraction.  A Hades permutation: 8 full rounds of three cubes and 83
-# partial rounds of one, each cube a square and a product (107 of each), and
-# a round's 3 constant adds and 9 adds and subtracts of the MDS.
-# `source_count_ms` is beside the bound in a row: the kernel's own count from
-# its source over the same rate, which says how far the kernel's body is
-# from what the function needs, and how close the kernel runs to its own
-# body.  It counts the primitives of csrc/felt252.cuh, one PTX instruction
-# each (tests/test_torch_felt252_source_count.py counts them on the host):
-# a product is 128 for the 16-word product (a mad.wide and an add with
-# carry a term) and 54 for the reduction (m read off the words, m * p as
-# products by 17 and shifts by 27 in two subtractions, and p added back to
-# a negative result): 182; a square is 92 (the 28 cross products, a one-bit
-# shift to double them, the 8 squares) and the same 54: 146.  A modular add
-# or subtract is written in plain C++ and counted as 24 (8 adds with carry
-# and 16 for the conditional subtraction).
-FELT_REDUCE_OPS = 8 * 3
-FELT_MUL_OPS = 64 + FELT_REDUCE_OPS
-FELT_SQR_OPS = 36 + FELT_REDUCE_OPS
-FELT_ADD_OPS = 16
-HADES_OPS = 107 * (FELT_MUL_OPS + FELT_SQR_OPS) + 91 * 12 * FELT_ADD_OPS
-FELT_MUL_SOURCE_OPS = 128 + 54
-FELT_SQR_SOURCE_OPS = 92 + 54
-FELT_ADD_SOURCE_OPS = 24
-HADES_SOURCE_OPS = (107 * (FELT_MUL_SOURCE_OPS + FELT_SQR_SOURCE_OPS)
-                    + 91 * 12 * FELT_ADD_SOURCE_OPS)
-P252 = (1 << 251) + 17 * (1 << 192) + 1
-# felts that stress the carries and the reduction: the ends of the field,
-# the words of p, runs of set words and their neighbours
-FELT_EDGE = [0, 1, 2, P252 - 1, P252 - 2, 1 << 251, (1 << 251) - 1, 17 << 192,
-             (1 << 192) - 1, (1 << 224) - 1, ((1 << 251) - 1) - (17 << 192),
-             (1 << 32) - 1]
 P = (1 << 31) - 1
-M31_EDGE = [0, 1, 2, P - 1, P - 2, 1 << 16, (1 << 16) - 1, (1 << 30) + 12345]
 
 
 def phase(name: str, seconds: float, result: str) -> None:
@@ -199,433 +157,110 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def max_abs_err(a, b) -> int:
-    import torch
+def kernel_cases():
+    """tests/torch_cuda_cases.py: the kernel rows' inputs and their plain
+    versions, which the card tests hold the kernels to."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_cuda_cases
 
-    if a.shape != b.shape:
-        fail(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
-    if a.numel() == 0:
-        return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+    return torch_cuda_cases
 
 
-def row_checker(rows: list):
-    """`check(name, shape, kernel, plain, source, n_bytes, n_ops, ...)`,
-    which holds kernel() against plain() (exact), times both and appends a
-    row of the kernel table to `rows`."""
+def bound_ms(n_bytes, n_ops) -> float:
+    """The least time the card could take to move n_bytes once and do
+    n_ops integer operations."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S) * 1e3
+
+
+def check(rows: list, row, case) -> dict:
+    """One row of the kernel table: `case.kernel()` against `case.plain()`
+    (exact), both timed, beside the bound of `case.cost`.  A case with a
+    `launch` is timed by it, its whole call (`kernel`) giving `host_us`
+    and `call_ms`.  Returns the row."""
     import torch
 
     from tstwo_tpu_torch.measure_roofline import time_call, time_ms
 
-    def check(name, shape, kernel, plain, source, n_bytes, n_ops,
-              library=None, extra=None):
-        """One row: `kernel` against `plain` (exact), both timed; the
-        bound from the bytes the function must move and the integer
-        operations it must do."""
-        t0 = time.perf_counter()
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        got_t = got if isinstance(got, (tuple, list)) else (got,)
-        want_t = want if isinstance(want, (tuple, list)) else (want,)
-        if len(got_t) != len(want_t):
-            fail(f"{name} {shape}: {len(got_t)} results, plain {len(want_t)}")
-        err = max(max_abs_err(g, w) for g, w in zip(got_t, want_t))
-        timing, plain_ms = time_call(kernel), time_ms(plain)
-        lib_t = {"ms": None, "host_us": None} if library is None \
-            else time_call(library, cold=False)
-        library_ms = lib_t["ms"]
-        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        by_ops = n_ops / INT32_OPS_PER_S * 1e3
-        bound_ms = max(by_bytes, by_ops)
-        phase(f"kernel {name} {shape}", time.perf_counter() - t0,
-              f"max_abs_err {err} (tolerance 0), kernel {timing['ms']:.4f} ms"
-              f" (cold {timing['cold_ms']:.4f} ms, host "
-              f"{timing['host_us']:.1f} us), plain {plain_ms:.4f} ms"
-              + (f", library {library_ms:.4f} ms (host "
-                 f"{lib_t['host_us']:.1f} us)" if library else "")
-              + f", bound {bound_ms:.4f} ms"
-              + "".join(f", {k} {v}" for k, v in (extra or {}).items()))
-        if err != 0:
-            fail(f"{name} {shape} disagrees with its plain version")
-        rows.append({"name": name, "shape": shape, "route": "cuda",
-                     "source": CSRC + source, "replaces": REPLACES[name],
-                     "max_abs_err": err, "ms": timing["ms"],
-                     "cold_ms": timing["cold_ms"],
-                     "host_us": timing["host_us"], "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
-                     "bound_by": "bytes" if by_bytes >= by_ops
-                     else "operations",
-                     "library_ms": library_ms,
-                     "library_host_us": lib_t["host_us"], **(extra or {})})
+    t0 = time.perf_counter()
+    got, want = case.kernel(), case.plain()
+    torch.cuda.synchronize()
+    err = kernel_cases().max_abs_err(got, want)
+    del got
+    try:
+        cost = case.cost(want)
+    except AssertionError as e:
+        fail(f"{row.name} {row.shape}: {e}")
+    del want
+    shape, extra = row.shape + cost.suffix, dict(cost.extra)
+    launch = getattr(case, "launch", None)
+    timing = time_call(launch or case.kernel)
+    if launch:
+        call = time_call(case.kernel, cold=False)
+        timing["host_us"], extra["call_ms"] = call["host_us"], call["ms"]
+    plain_ms = time_ms(case.plain)
+    lib_t = {"ms": None, "host_us": None} if cost.library is None \
+        else time_call(cost.library, cold=False)
+    library_ms = lib_t["ms"]
+    extra.update({f"{name}_ms": bound_ms(*counts)
+                  for name, counts in cost.bounds.items()})
+    bound = bound_ms(cost.n_bytes, cost.n_ops)
+    phase(f"kernel {row.name} {shape}", time.perf_counter() - t0,
+          f"max_abs_err {err} (tolerance 0), kernel {timing['ms']:.4f} ms"
+          f" (cold {timing['cold_ms']:.4f} ms, host "
+          f"{timing['host_us']:.1f} us), plain {plain_ms:.4f} ms"
+          + (f", library {library_ms:.4f} ms (host "
+             f"{lib_t['host_us']:.1f} us)" if cost.library else "")
+          + f", bound {bound:.4f} ms"
+          + "".join(f", {k} {v}" for k, v in extra.items()))
+    if err != 0:
+        fail(f"{row.name} {shape} disagrees with its plain version")
+    out = {"name": row.name, "shape": shape, "route": "cuda",
+           "source": CSRC + cost.source, "replaces": REPLACES[row.name],
+           "max_abs_err": err, "ms": timing["ms"],
+           "cold_ms": timing["cold_ms"], "host_us": timing["host_us"],
+           "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": ("bytes" if cost.n_bytes / HBM_BYTES_PER_S
+                        >= cost.n_ops / INT32_OPS_PER_S else "operations"),
+           "library_ms": library_ms, "library_host_us": lib_t["host_us"],
+           **extra}
+    rows.append(out)
+    return out
 
-    return check
 
-
-def compare_kernels(device):
+def kernel_phase(run) -> None:
     """Phase 3: every kernel against its plain version at the shapes its
-    paths give it (exact: tolerance 0).  Returns the kernel-table rows."""
-    import numpy as np
-    import torch
-
-    from tstwo_tpu_torch.circle import CanonicCoset
-    from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels
-    from tstwo_tpu_torch.ops import poseidon252 as pos
-    from tstwo_tpu_torch.poly.twiddles import precompute_twiddles
-    from tstwo_tpu_torch.utils import to_torch_u32
-
-    rng = np.random.default_rng(1)
-    # the twiddle trees of the 2^16 x 32 wide-Fibonacci prove and of the
-    # LogUp 2^20 prove (root cosets of log 18 and 22)
-    tree = precompute_twiddles(CanonicCoset.new(18).circle_domain().half_coset)
-    tree22 = precompute_twiddles(
-        CanonicCoset.new(22).circle_domain().half_coset)
-
-    def rand(shape, high=P):
-        return to_torch_u32(rng.integers(0, high, size=shape, dtype=np.uint64)
-                            .astype(np.uint32), device)
-
-    rows = []
-    check = row_checker(rows)
-
-    # wide Fibonacci 2^16 x 32: extension, composition, interpolation; the
-    # one-pass transform alone, at 10 and at 6 layers.  LogUp 2^20:
-    # extensions of 1, 2 and 4 columns, the composition, interpolations of
-    # the trace and the composition.  Then the calls as the proves really
-    # make them, with the coefficient length m (zero-extended inside the
-    # kernel) and the 1/N scale: wide Fibonacci 2^18 x 64 (trace
-    # interpolation, extension, the composition's pair) and LogUp 2^20.
-    # Last the three-pass plan, at 2^24 points under random twiddles.
-    for name, (batch, log_n), log_m, scaled, twiddles in [
-            ("cfft_forward", (32, 17), 17, False, tree),
-            ("cfft_forward", (4, 18), 18, False, tree),
-            ("cfft_inverse", (32, 16), 16, False, tree),
-            ("cfft_block_resident", (32, 10), 10, False, tree),
-            ("cfft_block_resident", (32, 6), 6, False, tree),
-            ("cfft_forward", (1, 21), 21, False, tree22),
-            ("cfft_forward", (4, 21), 21, False, tree22),
-            ("cfft_forward", (4, 22), 22, False, tree22),
-            ("cfft_inverse", (4, 20), 20, False, tree22),
-            ("cfft_inverse", (4, 21), 21, False, tree22),
-            ("cfft_inverse", (64, 18), 18, True, tree22),
-            ("cfft_forward", (64, 19), 18, False, tree22),
-            ("cfft_inverse", (4, 19), 19, True, tree22),
-            ("cfft_forward", (4, 20), 19, False, tree22),
-            ("cfft_inverse", (4, 20), 20, True, tree22),
-            ("cfft_forward", (1, 21), 20, False, tree22),
-            ("cfft_forward", (4, 21), 20, False, tree22),
-            ("cfft_inverse", (4, 21), 21, True, tree22),
-            ("cfft_forward", (4, 22), 21, False, tree22),
-            ("cfft_forward", (2, 24), 24, False, None),
-            ("cfft_inverse", (2, 24), 24, True, None)]:
-        inverse = name == "cfft_inverse"
-        n, m = 1 << log_n, 1 << log_m
-        x = rand((batch, m))
-        scale = pow(n, P - 2, P) if scaled else None
-        if twiddles is None:
-            circle = rand(n // 2)
-            line = [rand(n >> (l + 1)) for l in range(1, log_n)]
-            buf = fft.twiddle_buffer(line, circle)
-        else:
-            line, circle, buf = twiddles.fft_twiddles(log_n, inverse, device)
-        # the passes the library launches against the plan the tests pin,
-        # and the kernel launches one call really makes
-        passes = fft.cfft_kernel_plan(batch, log_n, inverse)
-        before = fft.cfft_kernel_launches()
-        fft.cfft_cuda(x, buf, log_n, inverse, scale, m)
-        made = fft.cfft_kernel_launches() - before
-        want = fft.cfft_plan(log_n, inverse)
-        limit = 1 if log_n <= 11 else 2 if log_n <= 22 else 3
-        if [p[:4] for p in passes] != want or made != len(want) \
-                or made > limit:
-            fail(f"{name} [{batch},2^{log_n}]: {made} kernel launches, "
-                 f"library plan {passes}, cfft_plan {want}")
-        cols = [p[4] for p in passes]
-
-        def plain():
-            full = x if m == n else torch.nn.functional.pad(x, (0, n - m))
-            return fft.fft_plain(full, line, circle, inverse, scale)
-
-        check(name, f"[{batch},2^{log_n}]"
-              + (f" from m=2^{log_m}" if m != n else "")
-              + (" scaled" if scaled else ""),
-              lambda: fft.cfft_cuda(x, buf, log_n, inverse, scale, m),
-              plain, "cfft.cu",
-              n_bytes=4 * (batch * m + batch * n + n),
-              n_ops=BUTTERFLY_OPS * batch * (n >> 1) * log_m,
-              extra={"passes": made, "columns_per_block": cols,
-                     "bound_full_n_ms": max(
-                         4 * (2 * batch * n + n) / HBM_BYTES_PER_S,
-                         BUTTERFLY_OPS * batch * (n >> 1) * log_n
-                         / INT32_OPS_PER_S) * 1e3})
-        del x, line, circle, buf
-
-    def hash_cost(n, byte_len, words_read):
-        """(bytes, operations) of n hashes of byte_len-byte messages that
-        read `words_read` words each and write 8."""
-        n_blocks = max(1, -(-byte_len // 64))
-        return (4 * n * (words_read + 8), B2S_OPS_PER_BLOCK * n_blocks * n)
-
-    # wide Fibonacci: 128-byte leaves (32 columns), 64-byte nodes.  LogUp
-    # 2^20: leaves of 1, 2 and 4 columns, and the 80-byte two-block hashes
-    # of a node level that takes in columns.  Here every word of the blocks
-    # is given and read, those past the message zero.
-    for (n_words, log_n), byte_len in [
-            ((32, 17), 128), ((16, 16), 64), ((16, 21), 4), ((16, 21), 8),
-            ((16, 21), 16), ((16, 22), 16), ((32, 21), 80)]:
-        w = rand((n_words, 1 << log_n), 1 << 32)
-        w[-(-byte_len // 4):] = 0
-        n_bytes, n_ops = hash_cost(1 << log_n, byte_len, n_words)
-        check("blake2s", f"[{n_words},2^{log_n}] {byte_len} B",
-              lambda: blake2s.hash_words_major_cuda(w, byte_len),
-              lambda: blake2s.hash_words_major_plain(w, byte_len),
-              "blake2s.cu", n_bytes, n_ops)
-
-    # Merkle layers as the commits give them to the kernel, columns read
-    # where they lie.  Leaf layers (counted as blake2s): the 64 columns of
-    # the 2^18 x 64 trace tree (256 B, four blocks), a FRI layer's [4, n]
-    # (16 B), LogUp 2^20's interaction stack.  Node layers (merkle_layer):
-    # 64 B from the child pairs alone; 80 B where 4 columns join (LogUp).
-    for name, log_n, n_cols, with_prev in [
-            ("blake2s", 19, 64, False), ("blake2s", 18, 4, False),
-            ("blake2s", 21, 4, False), ("merkle_layer", 18, 0, True),
-            ("merkle_layer", 16, 0, True), ("merkle_layer", 21, 0, True),
-            ("merkle_layer", 20, 4, True)]:
-        n = 1 << log_n
-        prev = rand((8, 2 * n), 1 << 32) if with_prev else None
-        cols = [rand((n_cols, n))] if n_cols else []
-        words = n_cols + (16 if with_prev else 0)
-        n_bytes, n_ops = hash_cost(n, 4 * words, words)
-        check(name,
-              (f"2^{log_n} nodes of [8,2^{log_n + 1}]" if with_prev else "")
-              + (" + " if with_prev and n_cols else "")
-              + (f"[{n_cols},2^{log_n}]" if n_cols else "")
-              + f" {4 * words} B",
-              lambda: blake2s.merkle_layer_cuda(prev, cols),
-              lambda: blake2s.merkle_layer_plain(prev, cols),
-              "blake2s.cu", n_bytes, n_ops)
-        del prev, cols
-
-    # the top of every tree: the layers of at most 2^TAIL_LOG nodes, one
-    # launch, each layer held against the plain loop; and the top of a tree
-    # of 2^3 leaves
-    for log in (blake2s.TAIL_LOG + 1, 3):
-        prev = rand((8, 1 << log), 1 << 32)
-        nodes = (1 << log) - 1
-        check("merkle_tail", f"{log} layers above [8,2^{log}]",
-              lambda: blake2s.merkle_tail_cuda(prev),
-              lambda: blake2s.merkle_tail_plain(prev), "blake2s.cu",
-              n_bytes=4 * 8 * ((1 << log) + nodes),
-              n_ops=B2S_OPS_PER_BLOCK * nodes)
-
-    # the proof-of-work grind: the kernel's least hit against the plain
-    # scan on the card, from three channel digests at pow_bits 12, 16 and
-    # 20 over 2^20 nonces and over a range across nonce 2^32; the bound
-    # counts the nonces up to the hit, all the function needs (the kernel's
-    # blocks past a hit return at once).  Then a launch as a pow_bits-26
-    # grind makes it, 2^24 nonces, at a pow_bits no digest reaches (128:
-    # all of words 0-3 zero), so that every nonce is hashed.
-    for label, words in grind_digests():
-        for pow_bits, start, count in [(12, 0, 1 << 20), (16, 0, 1 << 20),
-                                       (20, 0, 1 << 20),
-                                       (16, (1 << 32) - 3, 1 << 20)]:
-            if start and label != "fresh":
-                continue
-            hit = blake2s.grind_batch_plain(words, start, count, pow_bits,
-                                            device)
-            needed = count if hit < 0 else hit - start + 1
-            check("blake2s_grind",
-                  f"{label} pow_bits {pow_bits}, [{start}, +2^20): hit "
-                  f"{hit}",
-                  lambda: blake2s.grind_hit_cuda(words, start, count,
-                                                 pow_bits, device),
-                  lambda: blake2s.grind_hit_plain(words, start, count,
-                                                  pow_bits, device),
-                  "blake2s.cu", n_bytes=4 * 8 + 8,
-                  n_ops=B2S_OPS_PER_BLOCK * needed,
-                  extra={"nonces_needed": needed})
-    words = grind_digests()[0][1]
-    check("blake2s_grind", "fresh pow_bits 128, 2^24 nonces, all hashed",
-          lambda: blake2s.grind_hit_cuda(words, 0, 1 << 24, 128, device),
-          lambda: blake2s.grind_hit_plain(words, 0, 1 << 24, 128, device),
-          "blake2s.cu", n_bytes=4 * 8 + 8,
-          n_ops=B2S_OPS_PER_BLOCK * (1 << 24),
-          extra={"nonces_needed": 1 << 24})
-
-    transcript_rows(check, rand, device)
-
-    # wide Fibonacci 2^16 FRI layer; the LogUp 2^20 prove's largest
-    # deinterleaves; the first halving of a GKR 2^20 layer.  The PyTorch
-    # call for the same function is the two strided copies.
-    for shape in [(4, 1 << 18), (8, 1 << 22), (4, 4, 1 << 21), (4, 1 << 20)]:
-        x = rand(shape)
-
-        def copies():
-            return tuple(t.contiguous() for t in fri_ops.deinterleave_plain(x))
-
-        check("deinterleave",
-              "[" + ",".join(f"2^{d.bit_length() - 1}" if d > 8 else str(d)
-                             for d in shape) + "]",
-              lambda: fri_ops.deinterleave_cuda(x), copies,
-              "deinterleave.cu", n_bytes=8 * x.numel(), n_ops=0,
-              library=copies)
-
-    # the roofline probe's shapes: N = 2^24, 8 dependent products
-    a, b = rand(1 << 24), rand(1 << 24)
-    check("m31_mul", "[2^24]", lambda: m31_kernels.mul_cuda(a, b),
-          lambda: m31_kernels.mul_plain(a, b), "m31_kernels.cu",
-          n_bytes=12 * a.numel(), n_ops=M31_MUL_OPS * a.numel())
-    check("m31_mul_chain", "[2^24] reps 8",
-          lambda: m31_kernels.mul_chain_cuda(a, b, 8),
-          lambda: m31_kernels.mul_chain_plain(a, b, 8), "m31_kernels.cu",
-          n_bytes=12 * a.numel(), n_ops=8 * M31_MUL_OPS * a.numel())
-    # The Hades permutation of a batch: 1, 1000 and 2^16 states, the edge
-    # felts in every position of the first states, the rest random.
-    def rand_felts(n):
-        words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
-        words[7] &= (1 << 19) - 1  # below 2^251, so below p
-        return to_torch_u32(words.astype(np.uint32), device)
-
-    def hades_row(name, shape, n_perms, n_bytes, **kw):
-        ops = HADES_OPS * n_perms
-        check(name, shape, source="poseidon252.cu", n_bytes=n_bytes,
-              n_ops=ops, extra={"source_count_ms": max(
-                  n_bytes / HBM_BYTES_PER_S,
-                  HADES_SOURCE_OPS * n_perms / INT32_OPS_PER_S) * 1e3}, **kw)
-
-    edge = pos.ints_to_felts(FELT_EDGE, device)
-    for n in (1, 1000, 1 << 16):
-        state = torch.stack([rand_felts(n) for _ in range(3)])
-        m = min(n, len(FELT_EDGE))
-        for k in range(3):
-            state[k, :, :m] = edge.roll(k, dims=1)[:, :m]
-        hades_row("hades_permutation", f"[3,8,{n}]", n, 2 * 96 * n,
-                  kernel=lambda: pos.hades_permutation_cuda(state),
-                  plain=lambda: pos.hades_permutation_plain(state))
-    # Poseidon252 Merkle layers as the commits give them to the kernel: a
-    # leaf layer of 3 columns (the basic AIR's trace) and of 9 (two blocks),
-    # an inner layer without columns, an inner layer where a [4, n] stack
-    # joins (the FRI first layer); then the 2^20 prove's largest layers
-    # (there the plain version takes seconds a call: ~40k passes over the
-    # batch a permutation).
-    for log_n, n_cols, with_prev in [
-            (14, 3, False), (12, 9, False), (13, 0, True), (10, 4, True),
-            (21, 3, False), (21, 0, True), (22, 4, False), (21, 4, True)]:
-        n = 1 << log_n
-        prev = rand_felts(2 * n) if with_prev else None
-        if with_prev:  # the edge felts as the children of the first nodes
-            prev[:, :len(FELT_EDGE)] = edge
-        cols = [rand((n_cols, n))] if n_cols else []
-        n_felts = (2 if with_prev else 0) + -(-n_cols // 8) + 1
-        hades_row("poseidon_merkle_layer",
-                  (f"2^{log_n} nodes of [8,2^{log_n + 1}]" if with_prev
-                   else f"2^{log_n} leaves")
-                  + (f" + [{n_cols},2^{log_n}]" if n_cols else ""),
-                  n * -(-n_felts // 2),
-                  4 * n * (n_cols + (16 if with_prev else 0) + 8),
-                  kernel=lambda: pos.merkle_layer_cuda(prev, cols, n, device),
-                  plain=lambda: pos.merkle_layer_plain(prev, cols, n, device))
-        del prev, cols
-    # the Pallas tests' edge values at lengths the TPU tiling refused
+    paths give it (tests/torch_cuda_cases.py's KERNEL_ROWS; exact:
+    tolerance 0), each row timed."""
     t0 = time.perf_counter()
-    for n in (1, 1000, 4097):
-        ea = to_torch_u32(np.resize(np.array(M31_EDGE, np.uint32), n), device)
-        eb = ea.flip(0).contiguous()
-        for reps in (0, 1, 8):
-            if max_abs_err(m31_kernels.mul_chain_cuda(ea, eb, reps),
-                           m31_kernels.mul_chain_plain(ea, eb, reps)):
-                fail(f"m31_mul_chain edge values N={n} reps={reps}")
-        if max_abs_err(m31_kernels.mul_cuda(ea, eb),
-                       m31_kernels.mul_plain(ea, eb)):
-            fail(f"m31_mul edge values N={n}")
-    phase("kernel m31 edge values N=1,1000,4097", time.perf_counter() - t0,
-          "m31_mul and m31_mul_chain (reps 0, 1, 8) exact")
-    # the proves below share these twiddle trees: drop the device copies
-    # the rows above cached on them, so that a prove's peak memory holds
-    # only what the prove itself puts on the card
-    for twiddles in (tree, tree22):
-        twiddles.drop_device_copies()
-    return rows
+    for row in kernel_cases().KERNEL_ROWS:
+        check(run.rows, row, row.build(run.device))
+    phase("kernels", time.perf_counter() - t0,
+          f"{len(run.rows)} checks exact")
 
 
-# A zero digest at n_sent 238,210,102: word 3 of that draw is 0xFFFFFFFE >=
-# 2P, so the draw is rejected whole and the hash at 238,210,103 is drawn.
-REJECTING_N_SENT = 238_210_102
+def m31_phase(run) -> None:
+    """Phase 3b: the M31 kernels through their dispatch
+    (`ops.m31_kernels.mul` and `mul_chain` on card tensors, the roofline
+    probes' path, as in the JAX package), launches counted, each result
+    against its plain version."""
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.ops import m31_kernels
 
-
-def transcript_rows(check, rand, device) -> None:
-    """Phase 3's rows of the transcript kernel (one thread; exact): the
-    mixes the channel makes -- a root (64 bytes hashed), a u64 (40 bytes)
-    and four QM31s (96 bytes, two blocks) -- an FRI layer's step (a root's
-    mix and one draw), k = 1, 2 and 5 draws, and the rejecting state; then
-    k = 1, 2 and 5 draws from five random states, unrowed.  The plain
-    version runs on the same tensors.  The bound counts the compressions
-    this data needs (a rejected draw is one more) at 656 operations each."""
-    import torch
-
-    from tstwo_tpu_torch.ops import blake2s
-
-    def count(n_sent):
-        lo, hi = (int(w) & 0xFFFFFFFF for w in n_sent.tolist())
-        return lo | hi << 32
-
-    def row(label, digest, n_sent, msg, msg_bytes, k):
-        _, out, _ = blake2s.transcript_plain(digest, n_sent, msg, msg_bytes,
-                                             k)
-        blocks = 0 if msg is None else -(-(32 + msg_bytes) // 64)
-        hashes = blocks + count(out) - (count(n_sent) if msg is None else 0)
-        words = 8 + (2 if msg is None else -(-msg_bytes // 4)) + 10 + 8 * k
-        check("blake2s_transcript", label,
-              lambda: blake2s.transcript_cuda(digest, n_sent, msg, msg_bytes,
-                                              k),
-              lambda: blake2s.transcript_plain(digest, n_sent, msg,
-                                               msg_bytes, k),
-              "blake2s.cu", n_bytes=4 * words,
-              n_ops=B2S_OPS_PER_BLOCK * hashes,
-              extra={"compressions": hashes})
-
-    digest, n_sent = rand(8, 1 << 32), rand(2, 1 << 20)
-    root = rand((8, 3), 1 << 32)[:, 0]  # in place in its layer, strided
-    row("mix_root: 64 B hashed", digest, None, root, 32, 0)
-    row("mix_u64: 40 B", digest, None, rand(2, 1 << 32), 8, 0)
-    row("mix_felts of 4 QM31: 96 B, two blocks", digest, None, rand(16), 64,
-        0)
-    row("FRI layer: mix_root + 1 draw", digest, None, root, 32, 1)
-    for k in (1, 2, 5):
-        row(f"{k} draw(s)", digest, n_sent, None, None, k)
-    zero = torch.zeros(8, dtype=torch.int32, device=device)
-    rejecting = torch.tensor([REJECTING_N_SENT, 0], dtype=torch.int32,
-                             device=device)
-    row(f"rejecting state: zero digest, n_sent {REJECTING_N_SENT}, 1 draw",
-        zero, rejecting, None, None, 1)
-    got = blake2s.transcript_cuda(zero, rejecting, k=1)
-    if got[1].tolist() != [REJECTING_N_SENT + 2, 0]:
-        fail(f"the rejecting state drew at n_sent {got[1].tolist()}")
     t0 = time.perf_counter()
-    for _ in range(5):
-        digest, n_sent = rand(8, 1 << 32), rand(2, 1 << 32)
-        for k in (1, 2, 5):
-            for g, w in zip(blake2s.transcript_cuda(digest, n_sent, k=k),
-                            blake2s.transcript_plain(digest, n_sent, k=k)):
-                if max_abs_err(g, w):
-                    fail(f"blake2s_transcript: {k} draws from a random "
-                         "state disagree with the plain version")
-    phase("kernel blake2s_transcript five random states",
-          time.perf_counter() - t0,
-          "k = 1, 2, 5 draws from each (64-bit counts) exact")
-
-
-def grind_digests() -> list:
-    """(label, digest words) of three channel states: fresh, after a u64,
-    after a root."""
-    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
-    from tstwo_tpu_torch.ops.blake2s import digest_bytes_to_words
-
-    fresh, mixed, rooted = Blake2sChannel(), Blake2sChannel(), \
-        Blake2sChannel()
-    mixed.mix_u64(0x123456789)
-    rooted.mix_root(bytes(range(32)))
-    return [(label, digest_bytes_to_words(ch.digest)) for label, ch in
-            (("fresh", fresh), ("mix_u64", mixed), ("mix_root", rooted))]
+    case = kernel_cases().m31_case(1 << 24, run.device, reps=8)
+    kernels.reset_launches()
+    got = (m31_kernels.mul(case.a, case.b),
+           m31_kernels.mul_chain(case.a, case.b, case.reps))
+    launches = launch_counts("m31", ("m31_mul", "m31_mul_chain"))
+    want = (m31_kernels.mul_plain(case.a, case.b), case.plain())
+    if kernel_cases().max_abs_err(got, want):
+        fail("the M31 dispatch differs from the plain versions")
+    run.counts.update({name: launches[name]
+                       for name in ("m31_mul", "m31_mul_chain")})
+    phase("m31", time.perf_counter() - t0,
+          "m31_kernels.mul and mul_chain (reps 8) at 2^24 on the card "
+          "launched their kernels, exact")
 
 
 def proof_json(proof) -> str:
@@ -634,34 +269,22 @@ def proof_json(proof) -> str:
     return json.dumps(proof_to_dict(proof), sort_keys=True)
 
 
-def main() -> None:
-    if not (ROOT / "tstwo_tpu_torch" / "kernels.py").is_file():
-        fail("tstwo_tpu_torch is not beside this script")
-    for fixture in (FIXTURE, LOGUP_FIXTURE, POSEIDON_FIXTURE):
-        if not fixture.is_file():
-            fail(f"missing golden fixture {fixture}")
+def card_and_build() -> str:
+    """Phases 1-2: the card (its name and power limit first) and the
+    kernels' build; returns the card's nvidia-smi line."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-    sys.path.insert(0, str(ROOT))
     from tstwo_tpu_torch import kernels
-    from tstwo_tpu_torch.examples.wide_fibonacci import (
-        prove_wide_fibonacci, verify_wide_fibonacci)
 
-    # 1. the card
     t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    device = torch.device("cuda", 0)
     phase("card", time.perf_counter() - t0,
           f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-
-    # 2. build
     t0 = time.perf_counter()
     kernels.lib()
     info = kernels.BUILD_INFO
@@ -671,13 +294,23 @@ def main() -> None:
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    return card
 
-    # 3. kernels against their plain versions
-    t0 = time.perf_counter()
-    rows = compare_kernels(device)
-    phase("kernels", time.perf_counter() - t0, f"{len(rows)} checks exact")
 
-    # 4. golden proof against the JAX package's
+def wide_fibonacci_phases(run) -> None:
+    """Phases 4-6: wide Fibonacci, the main path.  The golden 2^8 x 8
+    proof against the JAX package's, 2^12 x 32 CUDA against CPU, then two
+    proves each at 2^16 x 32 and 2^18 x 64 with the kernels the main path
+    launches counted (the first prove at a size also fills the host-side
+    caches of that size: twiddle trees, domain points, vanishing
+    inverses; the second is the warm time)."""
+    import torch
+
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.examples.wide_fibonacci import (
+        prove_wide_fibonacci, verify_wide_fibonacci)
+
+    device = run.device
     t0 = time.perf_counter()
     proof, comp, cfg = prove_wide_fibonacci(8, 8, seed=0, device=device)
     if proof_json(proof) != FIXTURE.read_text().strip():
@@ -686,7 +319,6 @@ def main() -> None:
     phase("golden", time.perf_counter() - t0,
           "log 8 x 8 seed 0 proof == JAX fixture; verified")
 
-    # 5. mid-size: CUDA proof == the CPU plain path's proof
     t0 = time.perf_counter()
     cuda_json = proof_json(prove_wide_fibonacci(12, 32, seed=0,
                                                 device=device)[0])
@@ -697,16 +329,11 @@ def main() -> None:
     phase("mid_size", time.perf_counter() - t0,
           "log 12 x 32 CUDA proof == CPU plain proof")
 
-    # 6. real size, counting the kernels the main path launches.  The
-    # first prove at a size also fills the host-side caches of that size
-    # (twiddle trees, domain points, vanishing inverses); the second is
-    # the warm time.
     t0 = time.perf_counter()
     prove_wide_fibonacci(16, 32, seed=0, device=device)  # warm run
     torch.cuda.synchronize()
     phase("warm", time.perf_counter() - t0, "log 16 x 32 warm prove")
     kernels.reset_launches()
-    single_json = {}
     for log_n, seq in [(16, 32), (18, 64)]:
         walls = []
         for _ in range(2):
@@ -725,65 +352,42 @@ def main() -> None:
               f"{time.perf_counter() - t1:.3f} s;"
               f" peak device memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
-        single_json[(log_n, seq)] = proof_json(proof)
+        run.proofs[(log_n, seq)] = proof_json(proof)
     launches = launch_counts("wide_fibonacci", MAIN_PATH_KERNELS,
                              forbidden=("blake2s_grind",))
-    counts = {
-        "cfft_forward": launches["cfft_forward"],
-        "cfft_inverse": launches["cfft_inverse"],
-        # the contiguous pass (fft_fused's work) runs in every transform
-        "cfft_block_resident": launches["cfft_forward"]
-        + launches["cfft_inverse"],
-        "blake2s": launches["blake2s"],
-        "merkle_layer": launches["merkle_layer"],
-        "merkle_tail": launches["merkle_tail"],
-        "deinterleave": launches["deinterleave"],
-        "blake2s_transcript": launches["blake2s_transcript"],
-    }
+    run.counts.update({name: launches[name] for name in (
+        "cfft_forward", "cfft_inverse", "blake2s", "merkle_layer",
+        "merkle_tail", "deinterleave", "blake2s_transcript")})
+    # the contiguous pass (fft_fused's work) runs in every transform
+    run.counts["cfft_block_resident"] = launches["cfft_forward"] \
+        + launches["cfft_inverse"]
 
-    # 6b. the FRI commit with its transcript on the card against the host's
-    fri_transcript(device, card)
 
-    # 6c. the public API with no device named: on the card, the same proofs
-    defaults_phase(device, single_json[(18, 64)])
+def main(only=None) -> None:
+    """Every phase of PHASES in order, or with `only` the card, the build
+    and that phase alone; then the kernel table and the result."""
+    if not (ROOT / "tstwo_tpu_torch" / "kernels.py").is_file():
+        fail("tstwo_tpu_torch is not beside this script")
+    for fixture in (FIXTURE, LOGUP_FIXTURE, POSEIDON_FIXTURE):
+        if not fixture.is_file():
+            fail(f"missing golden fixture {fixture}")
+    import torch
 
-    # 7-8. the grind, host against card; the 96-bit prove, which runs it
-    grind_rates(device)
-    counts["blake2s_grind"] = secure_prove(device)["blake2s_grind"]
-
-    # 8b. constraint programs: the kernel against the plain executor, and
-    # the 96-bit 2^20 prove's composition against the eager evaluator
-    counts["constraint_eval"] = constraint_eval_phase(device, rows)[
-        "constraint_eval"]
-    # 8c. the Poseidon2 AIR: its 19,899-instruction program, a 96-bit prove
-    # that launches every kernel of the main path and the grind; its
-    # program's row carries that prove's launches, the others the counts
-    # below
-    poseidon2_phase(device, rows)
-    # 8d. the DEEP quotients: the kernel at the benchmark cells' groups
-    # against the plain version, and a 96-bit prove of each cell's recipe
-    counts["accumulate_quotients"] = quotients_phase(device, rows)[
-        "accumulate_quotients"]
-
-    # 9. the roofline probes: the M31 probe kernels' path
-    launches = roofline(device)
-    counts.update(m31_mul=launches["m31_mul"],
-                  m31_mul_chain=launches["m31_mul_chain"])
-
-    # 10-12. LogUp, 13-14. GKR, 15-18. the Poseidon252 flavour and sponge
-    logup_phases(device)
-    gkr_phases(device)
-    launches, poseidon_json = poseidon_phases(device)
-    counts["poseidon_merkle_layer"] = launches["poseidon_merkle_layer"]
-    counts["hades_permutation"] = poseidon_sponge(device)["hades_permutation"]
-
-    # 19. the mesh prove: ranks sharing the card
-    single_json.update({(log_n, None): j for log_n, j in poseidon_json.items()})
-    mesh_phase(card, single_json)
-
-    for row in rows:
-        row.setdefault("launches", counts[row["name"]])
-    print(json.dumps({"kernels": rows}), flush=True)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    # what the phases share: the kernel table's rows, the launches each
+    # row reports (those of the path that runs its kernel), and the
+    # single-device proofs the mesh phase holds its ranks to
+    run = SimpleNamespace(device=torch.device("cuda", 0),
+                          card=card_and_build(), rows=[], counts={},
+                          proofs={})
+    for name, run_phase in PHASES:
+        if only in (None, name):
+            run_phase(run)
+    for row in run.rows:
+        row.setdefault("launches", run.counts.get(row["name"]))
+    print(json.dumps({"kernels": run.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -832,7 +436,7 @@ def timed(fn):
 FRI_WALL_REPEATS = 5
 
 
-def fri_transcript(device, card: str, log_n: int = 18, seq: int = 64) -> None:
+def fri_transcript(run) -> None:
     """Phase 6b: the FRI commit of a warm wide-Fibonacci 2^18 x 64 prove
     (its quotient columns, log 20 and 19, captured from the prove) run by
     `commit_host` (transcript on the host channel) and by `commit`
@@ -852,6 +456,7 @@ def fri_transcript(device, card: str, log_n: int = 18, seq: int = 64) -> None:
     from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
     from tstwo_tpu_torch.fri import FriProver
 
+    device, card, log_n, seq = run.device, run.card, 18, 64
     t0 = time.perf_counter()
     captured = {}
     original = FriProver.commit
@@ -1077,8 +682,7 @@ def logup_recipe(log_n: int):
     return prove([component], channel, scheme), config, claimed
 
 
-def defaults_phase(device, example_json: str, log_n: int = 18,
-                   seq: int = 64) -> None:
+def defaults_phase(run) -> None:
     """Phase 6c: the public API with no device named.  (1) every callable
     of tests/test_torch_defaults.py's CREATORS, called without a device,
     must put its result on cuda:0 (and launch its kernel where the list
@@ -1111,7 +715,8 @@ def defaults_phase(device, example_json: str, log_n: int = 18,
     sys.path.insert(0, str(ROOT / "tests"))
     import test_torch_defaults as rule
 
-    cuda0 = torch.device("cuda", 0)
+    cuda0, log_n, seq = torch.device("cuda", 0), 18, 64
+    example_json = run.proofs[(log_n, seq)]
     t0 = time.perf_counter()
     wrong = {name: default for name, default in
              rule.DEVICE_PARAMETERS.items()
@@ -1219,7 +824,7 @@ def defaults_phase(device, example_json: str, log_n: int = 18,
           f"\"cuda\")), deinterleave launches {gkr_launches['deinterleave']}")
 
 
-def grind_rates(device) -> None:
+def grind_rates(run) -> None:
     """Phase 7: `grind` on the card against `grind_host` on this machine's
     host, from the channel after mix_u64(pow_bits), at pow_bits 12, 16, 20
     (the same nonce; host us a nonce) and 26 (the card alone: ~2^26 host
@@ -1233,10 +838,11 @@ def grind_rates(device) -> None:
     for pow_bits in (12, 16, 20, 26):
         ch = Blake2sChannel()
         ch.mix_u64(pow_bits)
-        grind(ch, pow_bits, device=device)  # warm
+        grind(ch, pow_bits, device=run.device)  # warm
         walls = []
         for _ in range(3):
-            nonce, wall = timed(lambda: grind(ch, pow_bits, device=device))
+            nonce, wall = timed(lambda: grind(ch, pow_bits,
+                                              device=run.device))
             walls.append(wall)
         if pow_bits <= 20:
             t1 = time.perf_counter()
@@ -1258,13 +864,13 @@ def grind_rates(device) -> None:
           "grind on the card == grind_host at pow_bits 12, 16, 20")
 
 
-def secure_prove(device) -> dict:
+def secure_prove(run) -> None:
     """Phase 8: wide Fibonacci 2^18 x 64 under stwo-cairo's
     secure_pcs_config (pow_bits 26, log blowup 1, 70 queries: 96 bits):
     two proves, a third under synchronised spans (the grind span beside
     the others), the port's verifier, and the nonce held against the plain
-    grind scanned on the card over [0, nonce].  Returns the launch counts
-    of the proves."""
+    grind scanned on the card over [0, nonce].  The grind kernel's row
+    reports the launches of the proves."""
     import torch
 
     from tstwo_tpu_torch import kernels, tracing
@@ -1276,6 +882,7 @@ def secure_prove(device) -> dict:
     from tstwo_tpu_torch.pcs import PcsConfig
     from tstwo_tpu_torch.pcs import prover as pcs_prover
 
+    device = run.device
     config = PcsConfig(SECURE_POW_BITS, FriConfig(0, 1, SECURE_QUERIES))
     grinds = []  # (digest words, nonce) of every grind of the proves
     grind = pcs_prover.grind
@@ -1335,201 +942,89 @@ def secure_prove(device) -> dict:
         {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
                                                  key=lambda kv: -kv[1])}),
           flush=True)
-    return launches
+    run.counts["blake2s_grind"] = launches["blake2s_grind"]
 
 
-class _Offsets:
-    """An AIR of masks at offsets -1, 1 and 2, constants and a QM31
-    product, on a domain twice the trace's."""
-
-    def __init__(self, log: int):
-        self.log = log
-
-    def log_size(self):
-        return self.log
-
-    def max_constraint_log_degree_bound(self):
-        return self.log + 1
-
-    def kernel_cache_key(self):
-        return None
-
-    def evaluate(self, ev):
-        from tstwo_tpu_torch.fields import QM31
-
-        a, b, c, d = ev.next_interaction_mask(1, [0, -1, 1, 2])
-        e = ev.next_trace_mask()
-        ev.add_constraint(a * b - c + d * e)
-        ev.add_constraint((a - 5) * QM31.from_ints([1, 2, 3, 4]) + e)
-        ev.add_constraint(-(c * c) + 7)
-
-
-def constraint_eval_phase(device, rows: list, log_n: int = 20,
-                          columns: int = 100, config=None) -> dict:
-    """Phase 8b: constraint programs (constraint_framework/program.py) on
-    the card.  `constraint_eval` against the plain executor, bit for bit:
-    wide Fibonacci 2^21 x 100 (each rows-per-thread variant, timed), the
-    LogUp AIR at 2^21 in both `pairs` modes (offset -1 masks, secure
-    parameters, a claimed sum), an AIR of masks at -1, 1, 2 and tile edges
-    at 2^2-2^9; the wide Fibonacci row of the kernel table beside
-    the eager DomainEvaluator's time.  Then wide Fibonacci 2^20 x 100 at 96
-    bits, proved twice: the warm prove launches `constraint_eval` once,
-    lowers nothing, runs no DomainEvaluator, and its composition
-    accumulation equals the eager DomainEvaluator's on the same card
-    columns.  Returns the launch counts of the proves.  (`log_n`,
-    `columns`, `config`: the prove's trace, and of the wide Fibonacci row
-    log_n + 1; smaller only to rehearse the phase off the card.)"""
-    import numpy as np
-    import torch
-
+def eager(ev, columns, log_n: int, coeffs, shift):
+    """The eager DomainEvaluator's quotients of `ev` over the trace
+    `columns` on the 2^(log_n + 1) domain: the path the constraint
+    programs replaced, and the oracle of the prove's accumulation."""
     from tstwo_tpu_torch import constraint_framework as cf
-    from tstwo_tpu_torch import kernels, tracing
-    from tstwo_tpu_torch.constraint_framework.logup import LookupElements
-    from tstwo_tpu_torch.constraint_framework.program import lower
     from tstwo_tpu_torch.constraints import \
         coset_vanishing_denominator_inverses_bitrev
-    from tstwo_tpu_torch.examples.logup_lookup import LookupEval
+    from tstwo_tpu_torch.ops import m31
+    from tstwo_tpu_torch.utils import to_torch_u32
+
+    dinv = to_torch_u32(coset_vanishing_denominator_inverses_bitrev(
+        log_n, log_n + 1), columns.device)
+    dom = cf.DomainEvaluator([[], list(columns)], log_n, log_n + 1,
+                             coeffs.view(-1, 4), shift, None)
+    ev.evaluate(dom)
+    return m31.mul(dom.row_res.arr, dinv[None, :])
+
+
+def constraint_eval_phase(run) -> None:
+    """Phase 8b: constraint programs (constraint_framework/program.py) on
+    the card.  `constraint_eval` against the plain executor, bit for bit
+    and timed: the LogUp AIR at 2^21 in both `pairs` modes (offset -1
+    masks, secure parameters), and wide Fibonacci 2^21 x 100, the row of
+    the kernel table, with each rows-per-thread variant timed and the
+    eager DomainEvaluator it replaces (equal, timed) beside it.  Then wide
+    Fibonacci 2^20 x 100 at 96 bits, proved twice: the warm prove launches
+    `constraint_eval` once, lowers nothing, runs no DomainEvaluator, and
+    its composition accumulation equals the eager DomainEvaluator's on the
+    same card columns."""
+    from tstwo_tpu_torch import constraint_framework as cf
+    from tstwo_tpu_torch import kernels, tracing
     from tstwo_tpu_torch.examples.wide_fibonacci import (
-        WideFibonacciEval, prove_wide_fibonacci, verify_wide_fibonacci)
-    from tstwo_tpu_torch.fields import M31, QM31
+        prove_wide_fibonacci, verify_wide_fibonacci)
     from tstwo_tpu_torch.fri import FriConfig
     from tstwo_tpu_torch.measure_roofline import time_call, time_ms
     from tstwo_tpu_torch.ops import constraint_eval as ce
     from tstwo_tpu_torch.ops import m31
     from tstwo_tpu_torch.pcs import PcsConfig
-    from tstwo_tpu_torch.utils import to_torch_u32
 
-    rng = np.random.default_rng(18)
-
-    def qm31s(k):
-        return [QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
-                for _ in range(k)]
-
-    def setup(ev, t, e, params=(), claimed=None):
-        """The program, random card columns, its scalars, an accumulator."""
-        program = lower(ev, t, e)
-        counts = list(program.columns) + [0] * (2 - len(program.columns))
-        stacks = [to_torch_u32(rng.integers(0, P, (c, 1 << e), dtype=np.int64)
-                               .astype(np.uint32), device) if c else None
-                  for c in counts]
-        shift = (claimed or QM31.zero()).mul_m31(
-            M31.from_int(1 << t).inverse())
-        scalars = to_torch_u32(program.scalars(
-            qm31s(program.n_constraints), list(params), shift).view(np.uint32),
-            device)
-        code = program.device_code(device)
-        return program, code, stacks, scalars
-
-    def run(program, code, stacks, scalars, acc, rows_per_thread=0):
-        ce.evaluate_cuda(code, program.device_loads(device),
-                         program.n_slots, stacks, scalars,
-                         program.denom_off, program.trace_log,
-                         program.eval_log, acc, rows_per_thread)
-        return acc
-
-    def plain(program, code, stacks, scalars):
-        return ce.evaluate_plain(code, program.n_slots, stacks, scalars,
-                                 program.denom_off, program.trace_log,
-                                 program.eval_log)
-
-    def exact(name, program, code, stacks, scalars, rows_per_thread=0):
-        acc = torch.zeros((4, 1 << program.eval_log), dtype=torch.int32,
-                          device=device)
-        got = run(program, code, stacks, scalars, acc, rows_per_thread)
-        err = max_abs_err(got, plain(program, code, stacks, scalars))
-        if err:
-            fail(f"constraint_eval {name} differs from the plain executor "
-                 f"(max_abs_err {err})")
-        return acc
-
+    cases, device, log_n, columns = kernel_cases(), run.device, 20, 100
+    for row in cases.LOGUP_PROGRAMS:
+        case = row.build(device)
+        if cases.max_abs_err(case.kernel(), case.plain()):
+            fail(f"constraint_eval {row.shape} differs from the plain "
+                 "executor")
+        timing = time_call(case.kernel)
+        program = case.program
+        print(f"  constraint_eval {row.shape}: {program.n_constraints} "
+              f"constraints, {len(program.code)} instructions, "
+              f"{program.n_slots} slots, {timing['ms']:.4f} ms (cold "
+              f"{timing['cold_ms']:.4f} ms)", flush=True)
+        del case
     t0 = time.perf_counter()
-    n_checks = 0
-    # tile edges and the same-domain offsets
-    for log in (2, 5, 9):
-        exact(f"offsets 2^{log}", *setup(_Offsets(log - 1), log - 1, log))
-        exact(f"wide_fib 2^{log}", *setup(WideFibonacciEval(log - 1, 6),
-                                          log - 1, log))
-        n_checks += 2
-    # LogUp: offset -1 masks, secure parameters, a claimed sum
-    for pairs in (True, False):
-        z, alpha = qm31s(2)
-        ev = LookupEval(log_n, LookupElements(z, alpha, 1), pairs)
-        info = cf.InfoEvaluator(log_n)
-        ev.evaluate(info)
-        args = setup(ev, log_n, log_n + 1, info.secure_params, qm31s(1)[0])
-        exact(f"logup pairs={pairs}", *args)
-        acc = torch.zeros((4, 2 << log_n), dtype=torch.int32, device=device)
-        timing = time_call(lambda: run(*args, acc))
-        print(f"  constraint_eval logup 2^{log_n + 1} pairs={pairs}: "
-              f"{args[0].n_constraints} constraints, {len(args[0].code)} "
-              f"instructions, {args[0].n_slots} slots, "
-              f"{timing['ms']:.4f} ms (cold {timing['cold_ms']:.4f} ms)",
-              flush=True)
-        n_checks += 1
-    # wide Fibonacci 2^21 x 100: each rows-per-thread variant
-    ev = WideFibonacciEval(log_n, columns)
-    program, code, stacks, scalars = args = setup(ev, log_n, log_n + 1)
-    variants = {}
-    for rpt in (1, 2, 4, 8):
-        exact(f"wide_fib rows_per_thread={rpt}", *args, rows_per_thread=rpt)
-        acc = torch.zeros((4, 2 << log_n), dtype=torch.int32, device=device)
-        variants[rpt] = time_ms(lambda: run(*args, acc, rpt))
-        n_checks += 1
-    print(f"  constraint_eval wide_fib 2^{log_n + 1} x {columns} ms by rows "
-          f"per thread: {json.dumps(variants)}", flush=True)
-    acc = torch.zeros((4, 2 << log_n), dtype=torch.int32, device=device)
-    timing = time_call(lambda: run(*args, acc))
-    plain_ms = time_ms(lambda: plain(*args))
+    case = cases.WIDE_FIB_PROGRAM.build(device)
+    wf_row = check(run.rows, cases.WIDE_FIB_PROGRAM, case)
+    wf_row["rows_per_thread_ms"] = {
+        rpt: time_ms(lambda: case.kernel(rpt)) for rpt in (1, 2, 4, 8)}
     # the eager path this replaces, on the same card columns
-    coeffs = scalars[:program.param_off].view(-1, 4)
-    dinv = to_torch_u32(coset_vanishing_denominator_inverses_bitrev(
-        log_n, log_n + 1), device)
+    program, scalars = case.program, case.scalars
 
-    def eager():
-        dom = cf.DomainEvaluator([[], [c for c in stacks[1]]], log_n,
-                                 log_n + 1, coeffs,
-                                 scalars[program.shift_off:
-                                         program.shift_off + 4], None)
-        ev.evaluate(dom)
-        return m31.mul(dom.row_res.arr, dinv[None, :])
+    def eager_call():
+        return eager(case.ev, case.stacks[1], case.trace_log,
+                     scalars[:program.param_off],
+                     scalars[program.shift_off:program.shift_off + 4])
 
-    acc.zero_()
-    if max_abs_err(run(*args, acc), eager()):
-        fail(f"constraint_eval wide_fib 2^{log_n + 1} x {columns} differs "
-             f"from the eager DomainEvaluator")
-    eager_ms = time_ms(eager)
-    n_ops = program.ops_per_row() << (log_n + 1)
-    n_bytes = (4 * columns + 2 * 16) << (log_n + 1)
-    by_ops, by_bytes = n_ops / INT32_OPS_PER_S * 1e3, \
-        n_bytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(by_ops, by_bytes)
-    shape = f"[{columns},2^{log_n + 1}] wide_fib"
-    rows.append({"name": "constraint_eval", "shape": shape,
-                 "route": "cuda", "source": CSRC + "constraint_eval.cu",
-                 "replaces": REPLACES["constraint_eval"], "max_abs_err": 0,
-                 "ms": timing["ms"], "cold_ms": timing["cold_ms"],
-                 "host_us": timing["host_us"], "plain_ms": plain_ms,
-                 "bound_ms": bound_ms,
-                 "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                 "library_ms": None, "library_host_us": None,
-                 "eager_ms": eager_ms, "ops_per_row": program.ops_per_row(),
-                 "instructions": len(program.code), "slots": program.n_slots,
-                 "rows_per_thread_ms": variants})
-    phase(f"kernel constraint_eval {shape}",
+    case.acc.copy_(case.acc0)
+    if cases.max_abs_err(case.kernel(), m31.add(case.acc0, eager_call())):
+        fail(f"constraint_eval {wf_row['shape']} differs from the eager "
+             "DomainEvaluator")
+    wf_row["eager_ms"] = eager_ms = time_ms(eager_call)
+    phase(f"constraint_eval {wf_row['shape']} eager",
           time.perf_counter() - t0,
-          f"{n_checks + 1} checks exact against the plain executor and the "
-          f"eager DomainEvaluator; kernel {timing['ms']:.4f} ms (cold "
-          f"{timing['cold_ms']:.4f} ms, host {timing['host_us']:.1f} us), "
-          f"plain {plain_ms:.4f} ms, eager DomainEvaluator {eager_ms:.4f} ms,"
-          f" bound {bound_ms:.4f} ms ({program.ops_per_row()} operations a "
-          f"row; {100 * bound_ms / timing['ms']:.1f}% of it); "
-          f"{len(program.code)} instructions, {program.n_slots} slots")
-    del stacks, args, acc
+          f"== the eager DomainEvaluator ({eager_ms:.4f} ms, the kernel "
+          f"{wf_row['ms']:.4f} ms); kernel ms by rows per thread: "
+          f"{json.dumps(wf_row['rows_per_thread_ms'])}")
+    del case
 
     # the 96-bit prove: one launch a proof, its accumulation == the eager
     t0 = time.perf_counter()
-    config = config or PcsConfig(SECURE_POW_BITS,
-                                 FriConfig(0, 1, SECURE_QUERIES))
+    config = PcsConfig(SECURE_POW_BITS, FriConfig(0, 1, SECURE_QUERIES))
     seen = []
     evaluate = ce.evaluate
     dom_init = cf.DomainEvaluator.__init__
@@ -1580,12 +1075,9 @@ def constraint_eval_phase(device, rows: list, log_n: int = 20,
         fail(f"the warm prove's counters: {counters}")
     stacks, scalars, before, after = seen[0]
     k = comp.n_constraints()
-    dom = cf.DomainEvaluator([[], [c for c in stacks[1]]], log_n, log_n + 1,
-                             scalars[:4 * k].view(-1, 4),
-                             scalars[4 * k:4 * k + 4], None)
-    comp.eval.evaluate(dom)
-    want = m31.add(before, m31.mul(dom.row_res.arr, dinv[None, :]))
-    if max_abs_err(after, want):
+    want = m31.add(before, eager(comp.eval, stacks[1], log_n,
+                                 scalars[:4 * k], scalars[4 * k:4 * k + 4]))
+    if cases.max_abs_err(after, want):
         fail(f"the 2^{log_n} x {columns} prove's composition accumulation "
              f"differs from the eager DomainEvaluator on the same columns")
     verify_wide_fibonacci(proof, comp, cfg, log_n)
@@ -1603,130 +1095,43 @@ def constraint_eval_phase(device, rows: list, log_n: int = 20,
         {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
                                                  key=lambda kv: -kv[1])}),
           flush=True)
-    return launches
+    run.counts["constraint_eval"] = launches["constraint_eval"]
 
 
-def poseidon2_phase(device, rows: list, log_n: int = 17,
-                    config=None) -> dict:
+def poseidon2_phase(run) -> None:
     """Phase 8c: the Poseidon2 AIR (examples/poseidon2.py).  Its constraint
     program (19,899 instructions, more than a block's shared memory holds)
     and wide Fibonacci's (493) through `constraint_eval`, each bit for bit
-    against the plain executor and timed warm and cold as phase 8b times
-    them: Poseidon2 at 2^(log_n + 2) x 1264 (+ 32 interaction columns),
-    bound by the operations its equations need (the benchmark reference's
+    against the plain executor and timed as phase 8b times them:
+    Poseidon2 at 2^19 x 1264 (+ 32 interaction columns), bound by the
+    operations its equations need (the benchmark reference's
     `constraint_ops`, the port's instruction count beside it), wide
     Fibonacci at 2^21 x 100, bound by the port's count as in phase 8b.
-    Then a 2^log_n-row prove at 96 bits, three times: the warm prove,
+    Then a 2^17-row prove at 96 bits, three times: the warm prove,
     with the launch counts reset just before it, launches `constraint_eval`
     once and every kernel of the main path and the grind, runs no
     DomainEvaluator on the card, fuses 1144 constraints, and verifies.
-    The Poseidon2 row's `launches` are that prove's; returns its launch
-    counts."""
-    import numpy as np
-    import torch
-
+    The Poseidon2 row's `launches` are that prove's."""
     from tstwo_tpu_torch import constraint_framework as cf
     from tstwo_tpu_torch import kernels, tracing
-    from tstwo_tpu_torch.constraint_framework.logup import LookupElements
-    from tstwo_tpu_torch.constraint_framework.program import lower
-    from tstwo_tpu_torch.examples.poseidon2 import (
-        N_STATE, Poseidon2Eval, prove_poseidon2, verify_poseidon2)
-    from tstwo_tpu_torch.examples.wide_fibonacci import WideFibonacciEval
-    from tstwo_tpu_torch.fields import M31, QM31
+    from tstwo_tpu_torch.examples.poseidon2 import (prove_poseidon2,
+                                                    verify_poseidon2)
     from tstwo_tpu_torch.fri import FriConfig
-    from tstwo_tpu_torch.measure_roofline import time_call
-    from tstwo_tpu_torch.ops import constraint_eval as ce
     from tstwo_tpu_torch.pcs import PcsConfig
-    from tstwo_tpu_torch.utils import to_torch_u32
 
     sys.path.insert(0, str(ROOT))
     from stark_bench.reference.poseidon2 import constraint_ops
 
-    rng = np.random.default_rng(19)
-
-    def qm31s(k):
-        return [QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
-                for _ in range(k)]
-
-    def program_row(name, ev, t, e, columns_bytes, equation_ops=None):
-        """The kernel-table row of `ev`'s program; its bound counts
-        `equation_ops` operations where given, else the program's."""
-        t0 = time.perf_counter()
-        info = cf.InfoEvaluator(t)
-        ev.evaluate(info)
-        program = lower(ev, t, e)
-        stacks = [to_torch_u32(rng.integers(0, P, (c, 1 << e), dtype=np.int64)
-                               .astype(np.uint32), device) if c else None
-                  for c in program.columns]
-        shift = qm31s(1)[0].mul_m31(M31.from_int(1 << t).inverse())
-        scalars = to_torch_u32(program.scalars(
-            qm31s(program.n_constraints), info.secure_params, shift
-        ).view(np.uint32), device)
-        code, loads = program.device_code(device), program.device_loads(device)
-        acc = torch.zeros((4, 1 << e), dtype=torch.int32, device=device)
-
-        def run():
-            ce.evaluate_cuda(code, loads, program.n_slots, stacks, scalars,
-                             program.denom_off, t, e, acc)
-
-        run()
-        want = ce.evaluate_plain(code, program.n_slots, stacks, scalars,
-                                 program.denom_off, t, e)
-        err = max_abs_err(acc, want)
-        if err:
-            fail(f"constraint_eval {name} differs from the plain executor "
-                 f"(max_abs_err {err})")
-        del want
-        timing = time_call(run)
-        rows_pt, chunk = ce.launch_shape(len(program.code),
-                                         program.count(ce.LOAD),
-                                         scalars.numel(), program.n_slots)
-        n_ops = (program.ops_per_row() << e if equation_ops is None
-                 else equation_ops)
-        n_bytes = (columns_bytes + 2 * 16) << e
-        by_ops = n_ops / INT32_OPS_PER_S * 1e3
-        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(by_ops, by_bytes)
-        shape = f"[{sum(program.columns)},2^{e}] {name}"
-        row = {"name": "constraint_eval", "shape": shape,
-                     "route": "cuda", "source": CSRC + "constraint_eval.cu",
-                     "replaces": REPLACES["constraint_eval"],
-                     "max_abs_err": 0, "ms": timing["ms"],
-                     "cold_ms": timing["cold_ms"],
-                     "host_us": timing["host_us"], "bound_ms": bound_ms,
-                     "bound_by": ("bytes" if by_bytes >= by_ops
-                                  else "operations"),
-                     "library_ms": None, "library_host_us": None,
-                     "ops_per_row": n_ops >> e,
-                     "program_ops_per_row": program.ops_per_row(),
-                     "instructions": len(program.code),
-                     "loads": int(program.count(ce.LOAD)),
-                     "slots": program.n_slots, "rows_per_thread": rows_pt,
-                     "chunk": chunk}
-        rows.append(row)
-        source = "the program's" if equation_ops is None else (
-            f"the equations'; the program's {program.ops_per_row()}")
-        phase(f"kernel constraint_eval {shape}", time.perf_counter() - t0,
-              f"exact against the plain executor; kernel "
-              f"{timing['ms']:.4f} ms (cold {timing['cold_ms']:.4f} ms, host "
-              f"{timing['host_us']:.1f} us), bound {bound_ms:.4f} ms "
-              f"({n_ops >> e} operations a row, {source}; "
-              f"{100 * bound_ms / timing['ms']:.1f}% of it); "
-              f"{len(program.code)} instructions, "
-              f"{program.count(ce.LOAD)} loads, {program.n_slots} slots, "
-              f"{rows_pt} rows a thread, {chunk} instructions a chunk")
-        del stacks, acc
-        return row
-
-    p2_row = program_row("poseidon2", Poseidon2Eval(
-        log_n, LookupElements(*qm31s(2), N_STATE)), log_n, log_n + 2,
-        4 * (1264 + 32), constraint_ops({}, log_n))
-    program_row("wide_fib", WideFibonacciEval(20, 100), 20, 21, 4 * 100)
+    cases, device, log_n = kernel_cases(), run.device, 17
+    p2_row = check(run.rows, cases.POSEIDON2_PROGRAM,
+                   cases.POSEIDON2_PROGRAM.build(
+                       device, equation_ops=constraint_ops({}, log_n)))
+    check(run.rows, cases.WIDE_FIB_PROGRAM,
+          cases.WIDE_FIB_PROGRAM.build(device))
 
     # the 96-bit prove: one launch a proof, no eager evaluator, verified
     t0 = time.perf_counter()
-    config = config or PcsConfig(SECURE_POW_BITS,
-                                 FriConfig(0, 1, SECURE_QUERIES))
+    config = PcsConfig(SECURE_POW_BITS, FriConfig(0, 1, SECURE_QUERIES))
     dom_init = cf.DomainEvaluator.__init__
 
     def no_eager(self, trace_evals, *a, **kw):
@@ -1764,6 +1169,7 @@ def poseidon2_phase(device, rows: list, log_n: int = 17,
         fail(f"the warm Poseidon2 2^{log_n} prove launched constraint_eval "
              f"{launches['constraint_eval']} times")
     p2_row["launches"] = launches["constraint_eval"]
+    run.counts.setdefault("constraint_eval", launches["constraint_eval"])
     if counters.get("constraints_fused") != 1144 or \
             counters.get("constraint_programs_built", 0) != 0 or \
             counters.get("logup_columns") != 8 or \
@@ -1782,106 +1188,32 @@ def poseidon2_phase(device, rows: list, log_n: int = 17,
         {k: round(v * 1e3, 3) for k, v in sorted(spans.items(),
                                                  key=lambda kv: -kv[1])}),
           flush=True)
-    return launches
 
 
-# the quotient groups of the benchmark's cells: (columns, log size,
-# columns also sampled at z - g).  wf100_b2s.2e20: the 100 trace columns at
-# 2^21, the composition's 4 at 2^22; p2_b2s.2e17: 1264 trace and 32
-# interaction columns at 2^18, the last 4 also at z - g, the composition's
-# 4 at 2^20.
-QUOTIENT_GROUPS = ((100, 21, 0), (4, 22, 0), (1296, 18, 4), (4, 20, 0))
-
-
-def quotients_phase(device, rows: list, config=None) -> dict:
+def quotients_phase(run) -> None:
     """Phase 8d: the DEEP quotients (csrc/quotients.cu).  The kernel at
-    each group of QUOTIENT_GROUPS against the plain version
-    (`_accumulate_rows`, on the card) bit for bit, timed warm and cold
-    behind the spin kernel beside its bound (each column value read once,
-    the [4, n] result written once) and the plain version's time.  Then
-    one 96-bit prove of each cell's recipe, wide Fibonacci 2^20 x 100 and
-    Poseidon2 2^17, warm, under the span tree: one launch a group (2 a
-    proof) and `quotient_columns` the committed columns (104 and 1300);
-    the synchronised `fri_quotients` span of a third prove.  Returns the
-    launch counts of the Poseidon2 prove."""
-    import numpy as np
-    import torch
-
+    the benchmark cells' quotient groups (tests/torch_cuda_cases.py's
+    QUOTIENT_ROWS) against the plain version (`_accumulate_rows`, on the
+    card) bit for bit (`check`): the launch alone timed warm and cold
+    beside its bound (each column value read once, the [4, n] result
+    written once), the whole call's time and host cost beside them.
+    Then one 96-bit prove of each
+    cell's recipe, wide Fibonacci 2^20 x 100 and Poseidon2 2^17, warm,
+    under the span tree: one launch a group (2 a proof) and
+    `quotient_columns` the committed columns (104 and 1300); the
+    synchronised `fri_quotients` span of a third prove.  The rows report
+    the launches of the Poseidon2 prove."""
     from tstwo_tpu_torch import kernels, tracing
-    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
-    from tstwo_tpu_torch.circle import CanonicCoset, CirclePoint
     from tstwo_tpu_torch.examples.poseidon2 import prove_poseidon2
     from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
-    from tstwo_tpu_torch.fields import QM31
     from tstwo_tpu_torch.fri import FriConfig
-    from tstwo_tpu_torch.measure_roofline import time_call
     from tstwo_tpu_torch.pcs import PcsConfig
-    from tstwo_tpu_torch.pcs import quotients as q
 
-    rng = np.random.default_rng(20)
-    gen = torch.Generator(device).manual_seed(20)
+    cases, device = kernel_cases(), run.device
+    for row in cases.QUOTIENT_ROWS:
+        check(run.rows, row, row.build(device))
 
-    def qm31():
-        return QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
-
-    for k, log, shifted in QUOTIENT_GROUPS:
-        t0 = time.perf_counter()
-        n = 1 << log
-        cols = torch.randint(0, P, (k, n), dtype=torch.int32, device=device,
-                             generator=gen)
-        z = CirclePoint.get_random_point(Blake2sChannel())
-        g = CanonicCoset.new(log - 1).step().into_ef(QM31.from_base)
-        samples = [[q.PointSample(z, qm31())] for _ in range(k)]
-        for col in samples[k - shifted:]:
-            col.append(q.PointSample(z - g, qm31()))
-        batches = q.ColumnSampleBatch.new_vec(samples)
-        alpha = qm31()
-        domain = CanonicCoset.new(log).circle_domain()
-        columns = list(cols)
-
-        def run():
-            return q.accumulate_quotients_cuda(domain, columns, alpha, batches)
-
-        xs, ys = q.domain_points_bitrev(domain, device)
-        want, plain_s = timed(lambda: q._accumulate_rows(cols, xs, ys,
-                                                         batches, alpha))
-        err = max_abs_err(run(), want)
-        if err:
-            fail(f"accumulate_quotients [{k},2^{log}] differs from the plain "
-                 f"version (max_abs_err {err})")
-        del want, xs, ys
-        # the kernel alone (its table uploaded once), then the whole call:
-        # the constants packed on the host, the upload and the launch
-        pack = q.pack_quotient_constants(batches, alpha)
-        table = q._device_table(pack, [c.data_ptr() for c in columns], device)
-        out = torch.empty((4, n), dtype=torch.int32, device=device)
-        timing = time_call(lambda: q._launch(table, k, pack, domain, 0, out))
-        call = time_call(run, cold=False)
-        n_bytes = 4 * k * n + 16 * n
-        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        shape = f"[{k},2^{log}], {len(batches)} batch(es)"
-        rows.append({"name": "accumulate_quotients", "shape": shape,
-                     "route": "cuda", "source": CSRC + "quotients.cu",
-                     "replaces": REPLACES["accumulate_quotients"],
-                     "max_abs_err": 0, "ms": timing["ms"],
-                     "cold_ms": timing["cold_ms"],
-                     "host_us": call["host_us"], "call_ms": call["ms"],
-                     "bound_ms": bound_ms,
-                     "bound_by": "bytes", "plain_ms": plain_s * 1e3,
-                     "library_ms": None, "library_host_us": None})
-        phase(f"kernel accumulate_quotients {shape}",
-              time.perf_counter() - t0,
-              f"exact against the plain version; kernel {timing['ms']:.4f} "
-              f"ms (cold {timing['cold_ms']:.4f} ms), bound {bound_ms:.4f} "
-              f"ms ({n_bytes / 1e6:.1f} MB; "
-              f"{100 * bound_ms / timing['ms']:.1f}% of it warm, "
-              f"{100 * bound_ms / timing['cold_ms']:.1f}% cold); the whole "
-              f"call {call['ms']:.4f} ms, host {call['host_us']:.1f} us; "
-              f"plain {plain_s * 1e3:.1f} ms")
-        del cols, columns
-
-    config = config or PcsConfig(SECURE_POW_BITS,
-                                 FriConfig(0, 1, SECURE_QUERIES))
+    config = PcsConfig(SECURE_POW_BITS, FriConfig(0, 1, SECURE_QUERIES))
     recipes = (("wide_fibonacci 20x100", 104, lambda seed:
                 prove_wide_fibonacci(20, 100, config, seed=seed,
                                      device=device)),
@@ -1917,34 +1249,10 @@ def quotients_phase(device, rows: list, config=None) -> dict:
               f"warm prove {wall:.3f} s: accumulate_quotients launched "
               f"twice, quotient_columns {columns}; synced fri_quotients "
               f"{span_ms:.3f} ms; {time.perf_counter() - t0:.1f} s in all")
-    for row in rows:
-        if row["name"] == "accumulate_quotients":
-            row["launches"] = launches["accumulate_quotients"]
-    return launches
+    run.counts["accumulate_quotients"] = launches["accumulate_quotients"]
 
 
-def roofline(device) -> dict:
-    """Phase 9: tstwo_tpu_torch.measure_roofline on the card, one figure a
-    line; returns the launch counts of that path."""
-    from tstwo_tpu_torch import kernels
-    from tstwo_tpu_torch.measure_roofline import measure
-
-    t0 = time.perf_counter()
-    kernels.reset_launches()
-    figures = measure(device)
-    launches = launch_counts("roofline", ("m31_mul", "m31_mul_chain"))
-    for key, value in figures.items():
-        print(f"  roofline {key}: {value}", flush=True)
-    if not figures["m31_mul_chain_parity"]:
-        fail("m31_mul_chain differs from its plain version at 2^24")
-    phase("roofline", time.perf_counter() - t0,
-          f"m31 mul kernel {figures['m31_mul_kernel_per_s']:.4e}/s, "
-          f"mul_chain kernel {figures['m31_mul_chain_kernel_per_s']:.4e}/s, "
-          f"stream {figures['stream_gb_per_s']:.1f} GB/s")
-    return launches
-
-
-def logup_phases(device) -> dict:
+def logup_phases(run) -> None:
     """Phases 10-12: the LogUp lookup AIR (three trees, LogUp interaction
     trace).  Golden 2^8 proof, 2^12 CUDA == CPU for both `pairs` modes,
     then two proves each at 2^16 and 2^20 with the launches counted."""
@@ -1954,6 +1262,7 @@ def logup_phases(device) -> dict:
     from tstwo_tpu_torch.examples.logup_lookup import (prove_logup_lookup,
                                                        verify_logup_lookup)
 
+    device = run.device
     t0 = time.perf_counter()
     proof, cfg, claimed = prove_logup_lookup(8, seed=0, pairs=True,
                                              device=device)
@@ -1989,8 +1298,7 @@ def logup_phases(device) -> dict:
               f"two proves {walls[0]:.3f} s, {walls[1]:.3f} s; verified in "
               f"{verify_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB;"
               f" proof {proof.size_estimate()} bytes")
-    return launch_counts("logup", MAIN_PATH_KERNELS,
-                         forbidden=("blake2s_grind",))
+    launch_counts("logup", MAIN_PATH_KERNELS, forbidden=("blake2s_grind",))
 
 
 GKR_KINDS = ("GrandProduct", "LogUpGeneric", "LogUpMultiplicities",
@@ -2042,7 +1350,7 @@ def flat_gkr_proof(proof) -> list:
     return out
 
 
-def gkr_phases(device) -> dict:
+def gkr_phases(run) -> None:
     """Phases 13-14: GKR batch proofs.  2^12 CUDA == CPU for each layer
     kind, then a GrandProduct + LogUpGeneric batch at 2^20: two proves,
     the batch verifier, and its claims against the input MLEs."""
@@ -2054,6 +1362,7 @@ def gkr_phases(device) -> dict:
                                              partially_verify_batch,
                                              prove_batch)
 
+    device = run.device
     t0 = time.perf_counter()
     for i, kind in enumerate(GKR_KINDS):
         cuda_proof, _ = prove_batch(Blake2sChannel(),
@@ -2098,7 +1407,7 @@ def gkr_phases(device) -> dict:
           f"{walls[1]:.3f} s; verified in {verify_s:.3f} s; claims == input "
           "MLEs at the OOD point on the card and on the CPU; peak device "
           f"memory {peak / 2**30:.3f} GiB")
-    return launch_counts("gkr", ("deinterleave",))
+    launch_counts("gkr", ("deinterleave",))
 
 
 def poseidon_proof_fields(proof) -> dict:
@@ -2148,18 +1457,20 @@ BLAKE2S_KERNELS = ("blake2s", "merkle_layer", "merkle_tail", "blake2s_grind",
                    "blake2s_transcript")
 
 
-def poseidon_phases(device) -> dict:
+def poseidon_phases(run) -> None:
     """Phases 15-17: the basic AIR under the Poseidon252 flavour.  Golden
     2^4 proof, 2^6 CUDA == CPU, then two proves each at 2^16 and 2^20 rows
     with the launches counted; every proof verified on the host, whose
     hash_node is Python-int Hades and shares nothing with the kernel.
-    Returns the launch counts and the 2^16 and 2^20 proofs' fields JSON
-    by log size (the mesh phase's references)."""
+    Keeps the 2^16 and 2^20 proofs' fields JSON (the mesh phase's
+    references)."""
     import torch
 
     from tstwo_tpu_torch import kernels
     from tstwo_tpu_torch.examples.basic_air import (prove_basic_air,
                                                     verify_basic_air)
+
+    device = run.device
 
     def prove(log_n, where):
         return prove_basic_air(log_n, device=where, flavor="poseidon252")
@@ -2193,7 +1504,6 @@ def poseidon_phases(device) -> dict:
 
     prove(16, device)  # fills the host-side caches of that size
     kernels.reset_launches()
-    proofs = {}
     for log_n in (16, 20):
         walls = []
         for _ in range(2):
@@ -2208,12 +1518,13 @@ def poseidon_phases(device) -> dict:
               f"the host in {time.perf_counter() - t1:.3f} s; peak device "
               f"memory {peak / 2**30:.3f} GiB; proof "
               f"{proof.size_estimate()} bytes")
-        proofs[log_n] = fields_json(proof)
-    return launch_counts("poseidon", POSEIDON_KERNELS,
-                         forbidden=BLAKE2S_KERNELS), proofs
+        run.proofs[(log_n, None)] = fields_json(proof)
+    run.counts["poseidon_merkle_layer"] = launch_counts(
+        "poseidon", POSEIDON_KERNELS,
+        forbidden=BLAKE2S_KERNELS)["poseidon_merkle_layer"]
 
 
-def poseidon_sponge(device) -> dict:
+def poseidon_sponge(run) -> None:
     """Phase 18: `poseidon_hash_many` of 2^16 rows of three felts on the
     card (two Hades launches): every row against the same sponge around
     the plain permutation, rows 0-7 against the host's hash."""
@@ -2222,14 +1533,10 @@ def poseidon_sponge(device) -> dict:
     from tstwo_tpu_torch import kernels
     from tstwo_tpu_torch.channel.poseidon import poseidon_hash_many
     from tstwo_tpu_torch.ops import poseidon252 as pos
-    from tstwo_tpu_torch.utils import to_torch_u32
 
+    cases = kernel_cases()
     rng = np.random.default_rng(16)
-    cols = []
-    for _ in range(3):
-        words = rng.integers(0, 1 << 32, size=(8, 1 << 16), dtype=np.uint64)
-        words[7] &= (1 << 19) - 1
-        cols.append(to_torch_u32(words.astype(np.uint32), device))
+    cols = [cases.rand_felts(rng, 1 << 16, run.device) for _ in range(3)]
     kernels.reset_launches()
     digests, wall = timed(lambda: pos.poseidon_hash_many(cols))
     launches = launch_counts("poseidon sponge", ("hades_permutation",))
@@ -2237,13 +1544,14 @@ def poseidon_sponge(device) -> dict:
     if pos.felts_to_ints(digests[:, :8]) != [poseidon_hash_many(r)
                                              for r in rows]:
         fail("poseidon_hash_many on the card differs from the host's hash")
-    plain = pos._sponge(cols, 1 << 16, device, pos.hades_permutation_plain)
-    if max_abs_err(digests, plain):
+    plain = pos._sponge(cols, 1 << 16, run.device,
+                        pos.hades_permutation_plain)
+    if cases.max_abs_err(digests, plain):
         fail("poseidon_hash_many on the card differs from the plain sponge")
     phase("poseidon sponge", wall,
           "poseidon_hash_many of 2^16 rows of 3 felts == the sponge around "
           "the plain permutation (all rows) == host hash (rows 0-7)")
-    return launches
+    run.counts["hades_permutation"] = launches["hades_permutation"]
 
 
 # (flavour, backend, ranks, log_n, seq) of each group of the mesh phase:
@@ -2316,13 +1624,14 @@ def mesh_rank(argv) -> None:
     torch.distributed.destroy_process_group()
 
 
-def mesh_phase(card: str, single_json: dict) -> None:
+def mesh_phase(run) -> None:
     """Phase 19: each group of MESH_GROUPS as processes of this script on
     the one card (the kernels are built: the ranks load the library),
     against the single-device proofs of phases 6 and 17, keyed by
     (log_n, seq)."""
     import tempfile
 
+    card, single_json = run.card, run.proofs
     for flavor, backend, size, log_n, seq in MESH_GROUPS:
         required, forbidden = MESH_KERNELS[flavor]
         t0 = time.perf_counter()
@@ -2392,43 +1701,24 @@ def mesh_phase(card: str, single_json: dict) -> None:
               + f"; leaf rows n/{size} of every sharded column")
 
 
-def constraint_eval_only(which: str = "constraint_eval") -> None:
-    """`--only constraint_eval`: the card, the build and phase 8b alone,
-    then the phase's rows of the kernel table; `--only poseidon2`: phase
-    8c instead; `--only quotients`: phase 8d."""
-    import torch
-
-    sys.path.insert(0, str(ROOT))
-    from tstwo_tpu_torch import kernels
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    t0 = time.perf_counter()
-    kernels.lib()
-    phase("build", time.perf_counter() - t0,
-          f"nvcc {kernels.BUILD_INFO['seconds']:.1f} s")
-    for line in kernels.BUILD_INFO.get("ptxas", "").splitlines():
-        if which in line or "registers" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
-    rows = []
-    run_phase = {"constraint_eval": constraint_eval_phase,
-                 "poseidon2": poseidon2_phase,
-                 "quotients": quotients_phase}[which]
-    launches = run_phase(torch.device("cuda", 0), rows)
-    for row in rows:
-        row.setdefault("launches", launches["constraint_eval"])
-    print(json.dumps({"kernels": rows}), flush=True)
+# (--only name, phase) in the order main() runs them: `--only NAME` runs
+# the card, the build and that phase alone
+PHASES = ((None, kernel_phase), (None, m31_phase),
+          (None, wide_fibonacci_phases),
+          (None, fri_transcript), (None, defaults_phase),
+          (None, grind_rates), (None, secure_prove),
+          ("constraint_eval", constraint_eval_phase),
+          ("poseidon2", poseidon2_phase), ("quotients", quotients_phase),
+          (None, logup_phases), (None, gkr_phases), (None, poseidon_phases),
+          (None, poseidon_sponge), (None, mesh_phase))
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+    if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[1:])
-    elif sys.argv[1:2] == ["--only"] and sys.argv[2:] in (
-            ["constraint_eval"], ["poseidon2"], ["quotients"]):
-        constraint_eval_only(sys.argv[2])
     else:
-        main()
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--only", choices=[name for name, _ in PHASES if name])
+        main(ap.parse_args().only)

@@ -720,9 +720,8 @@ ENTRY_POINTS = {
                     "tutorial.example_03_committing_to_the_trace_polynomials",
                     "tutorial.example_04_constraints_over_trace_polynomial",
                     "tutorial.example_05_proving_an_air")},
-    **{f"tstwo_tpu_torch.{name}": "a measurement driver for the card"
-       for name in ("measure_merkle.measure", "measure_poseidon.measure",
-                    "measure_roofline.measure")},
+    "tstwo_tpu_torch.measure_poseidon.measure": "a measurement script for "
+    "the card",
     **{f"tstwo_tpu_torch.parallel.mesh.{name}": "needs an initialised "
        "process group (tests/test_torch_parallel.py)"
        for name in ("make_mesh", "make_mesh2d")},

@@ -4,25 +4,21 @@
 as primitives of one PTX instruction each; built for the host with
 -DTSTWO_FELT_COUNT_OPS every primitive adds one to a counter.  This file
 builds it so with g++, counts a product, a square and a Hades permutation,
-and holds the counts against the constants `chip_smoke.py` derives its
-`source_count_ms` from (exact).  Skips where g++ is missing.
+and holds the counts against the constants `tests/torch_cuda_cases.py`
+counts the Poseidon rows' `source_count` bound with (exact).  Skips where g++ is missing.
 
     python -m pytest tests/test_torch_felt252_source_count.py -n 0
 """
 import ctypes
-import importlib.util
 import shutil
 import subprocess
 from pathlib import Path
 
 import pytest
+import torch_cuda_cases as cases
 
 ROOT = Path(__file__).resolve().parents[1]
 HEADER_DIR = ROOT / "tstwo_tpu_torch" / "csrc"
-_spec = importlib.util.spec_from_file_location("chip_smoke",
-                                               ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 WRAPPER = r"""
 #include "felt252.cuh"
@@ -79,8 +75,8 @@ def count_ops(tmp_path_factory):
 
 
 @pytest.mark.parametrize("what,want", [
-    (0, chip_smoke.FELT_MUL_SOURCE_OPS), (1, chip_smoke.FELT_SQR_SOURCE_OPS),
-    (2, chip_smoke.FELT_MUL_SOURCE_OPS + chip_smoke.FELT_SQR_SOURCE_OPS)],
+    (0, cases.FELT_MUL_SOURCE_OPS), (1, cases.FELT_SQR_SOURCE_OPS),
+    (2, cases.FELT_MUL_SOURCE_OPS + cases.FELT_SQR_SOURCE_OPS)],
     ids=["product", "square", "cube"])
 def test_felt_source_counts(count_ops, what, want):
     assert count_ops(what) == want
@@ -89,9 +85,9 @@ def test_felt_source_counts(count_ops, what, want):
 def test_hades_source_count(count_ops):
     """107 cubes a permutation, each a square and a product; the whole body
     within the design target of 64,000 instructions."""
-    cube = chip_smoke.FELT_MUL_SOURCE_OPS + chip_smoke.FELT_SQR_SOURCE_OPS
+    cube = cases.FELT_MUL_SOURCE_OPS + cases.FELT_SQR_SOURCE_OPS
     assert count_ops(3) == 107 * cube
-    assert chip_smoke.HADES_SOURCE_OPS == \
-        107 * cube + 91 * 12 * chip_smoke.FELT_ADD_SOURCE_OPS
-    assert chip_smoke.HADES_SOURCE_OPS <= 64_000
-    assert chip_smoke.HADES_OPS == 33_308
+    assert cases.HADES_SOURCE_OPS == \
+        107 * cube + 91 * 12 * cases.FELT_ADD_SOURCE_OPS
+    assert cases.HADES_SOURCE_OPS <= 64_000
+    assert cases.HADES_OPS == 33_308

@@ -94,12 +94,16 @@ def test_packed_constants_sum_the_line_coefficients(seed, n_cols, shuffle):
 @pytest.mark.parametrize("log_size", range(1, 23))
 def test_kernel_points_are_the_bit_reversed_domain(log_size):
     """The points made from the initial point and the step multiples, as
-    csrc/quotients.cu makes them, at every row."""
+    csrc/quotients.cu makes them, at every row, against the JAX package's
+    bit-reversed domain; `domain_points_bitrev` uploads them."""
     domain = CanonicCoset.new(log_size).circle_domain()
-    want = quotients._domain_points_bitrev_np(
+    want = jax_quotients._domain_points_bitrev_np(
         domain.half_coset.initial_index.value, domain.half_coset.log_size)
     got = quotients.domain_points_plain(domain, 0, domain.size())
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    xs, ys = quotients.domain_points_bitrev(domain, "cpu")
+    assert np.array_equal(to_numpy_u32(xs), want[0])
+    assert np.array_equal(to_numpy_u32(ys), want[1])
     assert quotients._step_points(domain.half_coset.initial_index.value,
                                   log_size).shape == (max(log_size - 1, 1), 2)
 
@@ -110,7 +114,7 @@ def test_kernel_points_of_a_rank_slice(log_size, size):
     """A rank's slice (first row rank * n / D) made on its own equals that
     slice of the whole domain's points."""
     domain = CanonicCoset.new(log_size).circle_domain()
-    xs, ys = quotients._domain_points_bitrev_np(
+    xs, ys = jax_quotients._domain_points_bitrev_np(
         domain.half_coset.initial_index.value, domain.half_coset.log_size)
     m = domain.size() // size
     for rank in range(size):

@@ -137,8 +137,9 @@ MAX_TAIL_LOG = 12
 # kernel, with every layer above it, in one launch (see `merkle_tail`).
 # One block on one SM hashes a level of 2^11 nodes in ~14 us where a launch
 # over the card takes ~3 us, but each launch saved is 15-25 us of the
-# enqueueing thread, which is what a prove waits for; measure_merkle.py
-# times both for every first level.
+# enqueueing thread, which is what a prove waits for.  Both were measured
+# for every first level on the H100 when the tail kernel came in; CHANGES.md
+# records it under the Merkle commit's redesign.
 TAIL_LOG = 11
 
 

@@ -31,8 +31,7 @@ from ..ops import m31 as m31_ops
 from ..ops import qm31 as qm31_ops
 from ..poly.circle_poly import CircleEvaluation, SecureEvaluation
 from ..tracing import count
-from ..utils import (bit_reverse_permutation, entry_device, to_numpy_u32,
-                     to_torch_u32, upload)
+from ..utils import entry_device, to_numpy_u32, to_torch_u32, upload
 from .utils import TreeVec
 
 P = (1 << 31) - 1
@@ -190,39 +189,11 @@ def pack_quotient_constants(sample_batches: Sequence[ColumnSampleBatch],
                  dtype=np.int32))
 
 
-@lru_cache(maxsize=None)
-def _domain_points_bitrev_np(initial_index: int, half_log_size: int
-                             ) -> Tuple[np.ndarray, np.ndarray]:
-    """(x, y) of all domain points in bit-reversed evaluation order."""
-    from ..circle import CirclePointIndex, Coset
-
-    half_coset = Coset(CirclePointIndex(initial_index), half_log_size)
-    half = half_coset.size()
-    init = half_coset.initial
-    xs = np.array([init.x.value], dtype=np.uint64)
-    ys = np.array([init.y.value], dtype=np.uint64)
-    j = 0
-    while len(xs) < half:
-        sp = half_coset.step_size.scale(1 << j).to_point()
-        sx, sy = np.uint64(sp.x.value), np.uint64(sp.y.value)
-        nx = (xs * sx + np.uint64(P) * P - ys * sy) % P
-        ny = (xs * sy + ys * sx) % P
-        xs = np.concatenate([xs, nx])
-        ys = np.concatenate([ys, ny])
-        j += 1
-    # natural domain order: half coset then its conjugate
-    full_x = np.concatenate([xs, xs])
-    full_y = np.concatenate([ys, (P - ys) % P])
-    perm = bit_reverse_permutation(half_log_size + 1)
-    return (full_x[perm].astype(np.uint32), full_y[perm].astype(np.uint32))
-
-
 def domain_points_bitrev(domain: CircleDomain, device=None):
     """The domain's x and y in bit-reversed order, int32 [n] each, on
-    `device` (CUDA device 0 unless named)."""
+    `device` (CUDA device 0 unless named): `domain_points_plain`'s rows."""
     device = entry_device(device)
-    xs, ys = _domain_points_bitrev_np(domain.half_coset.initial_index.value,
-                                      domain.half_coset.log_size)
+    xs, ys = domain_points_plain(domain, 0, domain.size())
     return to_torch_u32(xs, device), to_torch_u32(ys, device)
 
 
