@@ -7,7 +7,9 @@ layers of at most 2^TAIL_LOG nodes.  Here both take their plain versions
 card); every layer and the root must equal the JAX MerkleProver's, the
 openings must verify, and a single layer must equal the JAX package's
 `commit_on_layer`, its Pallas kernel in interpret mode, and hashlib node
-by node.  Inputs come from a numpy seed.
+by node.  The decommitment's array plan is held to the node-by-node
+traversal the verifier walks, and its bulk digests and M31s to the
+per-node conversions.  Inputs come from a numpy seed.
 """
 import hashlib
 
@@ -15,16 +17,31 @@ import numpy as np
 import pytest
 
 import jax.numpy as jnp
+import torch
 
 from tstwo_tpu.ops import blake2s as jax_blake2s
 from tstwo_tpu.vcs import MerkleProver as JaxMerkleProver
 from tstwo_tpu.vcs import MerkleVerifier as JaxMerkleVerifier
 from tstwo_tpu.vcs.blake2s_merkle import commit_on_layer as jax_commit_on_layer
+from tstwo_tpu.vcs.poseidon252_merkle import \
+    Poseidon252MerkleProver as JaxPoseidonProver
+from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+from tstwo_tpu_torch.channel.poseidon import FieldElement252
+from tstwo_tpu_torch.fields import M31
+from tstwo_tpu_torch.fri import (
+    CIRCLE_TO_LINE_FOLD_STEP, FOLD_STEP,
+    compute_decommitment_positions_and_witness_evals)
 from tstwo_tpu_torch.ops import blake2s
 from tstwo_tpu_torch.ops.blake2s import TAIL_LOG
+from tstwo_tpu_torch.parallel.merkle import ShardedMerkleProver
+from tstwo_tpu_torch.queries import Queries, get_query_positions_by_log_size
 from tstwo_tpu_torch.utils import to_numpy_u32, to_torch_u32
 from tstwo_tpu_torch.vcs import MerkleProver, MerkleVerifier
 from tstwo_tpu_torch.vcs.blake2s_merkle import commit_on_layer
+from tstwo_tpu_torch.vcs.ops import MERKLE_OPS
+from tstwo_tpu_torch.vcs.poseidon252_merkle import Poseidon252MerkleProver
+from tstwo_tpu_torch.vcs.prover import plan_decommitment
+from tstwo_tpu_torch.vcs.utils import Peekable, next_decommitment_node
 
 P = (1 << 31) - 1
 T = TAIL_LOG
@@ -179,3 +196,169 @@ def test_plain_hash_refuses_more_words_than_its_blocks():
     with pytest.raises(ValueError, match="more words"):
         blake2s.hash_words_major_plain(
             to_torch_u32(np.zeros((17, 2), np.uint32)), 64)
+
+
+# -- the decommitment's plan, digests and values ----------------------------
+
+def _plan_node_by_node(queries, n_layers):
+    """Per layer (big->small) the visited nodes, the children whose hashes
+    enter the witness and the queried flags, one node at a time as the
+    verifier's peekable merge walks them."""
+    out, prev = [], []
+    for log in range(n_layers - 1, -1, -1):
+        prev_q, direct_q = Peekable(prev), Peekable(queries.get(log, []))
+        nodes, children, queried = [], [], []
+        while (node := next_decommitment_node(prev_q, direct_q)) is not None:
+            if log + 1 < n_layers:
+                children += [c for c in (2 * node, 2 * node + 1)
+                             if not prev_q.next_if_eq(c)]
+            queried.append(direct_q.next_if_eq(node))
+            nodes.append(node)
+        out.append((nodes, children, queried))
+        prev = nodes
+    return out
+
+
+PLAN_SEEDS = range(16)
+
+
+def _plan_case(seed):
+    """Columns at 1-3 log sizes of 0..9, often with layers of no column
+    between them, and up to 70 distinct queries at some of the column sizes
+    and some sizes without a column; seed 0 queries nothing."""
+    rng = np.random.default_rng(1000 + seed)
+    logs = sorted(rng.choice(10, 1 + seed % 3, replace=False).tolist(),
+                  reverse=True)
+    col_logs = [log for log in logs for _ in range(1 + rng.integers(2))]
+    queried_logs = [log for log in range(logs[0] + 1)
+                    if seed and (log == logs[0] or rng.random() < 0.3)]
+    queries = {}
+    for log in queried_logs:
+        k = int(rng.integers(1, min(70, 1 << log) + 1))
+        queries[log] = sorted(rng.choice(1 << log, k, replace=False).tolist())
+    return col_logs, queries
+
+
+@pytest.mark.parametrize("seed", PLAN_SEEDS)
+def test_plan_is_the_node_by_node_traversal(seed):
+    col_logs, queries = _plan_case(seed)
+    cols = [torch.zeros(1 << log, dtype=torch.int32) for log in col_logs]
+    n_layers = max(col_logs) + 1
+    plans = plan_decommitment(queries, n_layers, cols)
+    want = _plan_node_by_node(queries, n_layers)
+    assert [p["log"] for p in plans] == list(range(n_layers - 1, -1, -1))
+    for plan, (nodes, children, queried) in zip(plans, want):
+        assert plan["node_idxs"].tolist() == nodes
+        assert plan["hash_idxs"].tolist() == children
+        assert plan["queried"].tolist() == queried
+        assert [id(c) for c in plan["cols"]] == [
+            id(c) for c, log in zip(cols, col_logs) if log == plan["log"]]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plan_nodes_are_the_folded_query_set_at_every_depth(seed):
+    """Queries drawn by a channel and folded to each column size, as the
+    commitment trees get them, visit unique(q >> d) at depth d below the
+    largest layer; a FRI layer's tree, whose leaves are the queried
+    cosets, visits the same sets above its leaves."""
+    max_log = 8 + seed % 4
+    channel = Blake2sChannel()
+    channel.mix_u64(seed)
+    queries = Queries.generate(channel, max_log, 70 - 9 * seed)
+    q = np.asarray(queries.positions)
+    col_logs = sorted({max_log, max_log - 1 - seed % 2, max_log - 3},
+                      reverse=True)
+    n_layers = max_log + 1
+    plans = plan_decommitment(
+        get_query_positions_by_log_size(queries, col_logs), n_layers,
+        [torch.zeros(1 << log, dtype=torch.int32) for log in col_logs])
+    for d, plan in enumerate(plans):
+        assert plan["node_idxs"].tolist() == np.unique(q >> d).tolist()
+
+    # FRI's first layer folds circle to line, an inner layer by FOLD_STEP
+    for step in (CIRCLE_TO_LINE_FOLD_STEP, FOLD_STEP):
+        positions, _ = compute_decommitment_positions_and_witness_evals(
+            torch.zeros((4, 1 << max_log), dtype=torch.int32),
+            queries.positions, step)
+        plans = plan_decommitment({max_log: positions}, n_layers,
+                                  [torch.zeros((4, 1 << max_log),
+                                               dtype=torch.int32)])
+        assert plans[0]["node_idxs"].tolist() == positions
+        assert plans[0]["queried"].all()
+        for d, plan in enumerate(plans[step:], start=step):
+            assert plan["node_idxs"].tolist() == np.unique(q >> d).tolist()
+
+
+# flavour -> (port prover, JAX prover, a hash witness entry as plain data)
+FLAVOURS = {
+    "blake2s": (MerkleProver, JaxMerkleProver, lambda h: h),
+    "poseidon252": (Poseidon252MerkleProver, JaxPoseidonProver,
+                    lambda h: h.value),
+}
+
+
+@pytest.mark.parametrize("flavour,seed", [
+    *(("blake2s", s) for s in PLAN_SEEDS if s % 3 == 0 or s < 6),
+    ("poseidon252", 2), ("poseidon252", 4)])
+def test_decommitment_equals_jax_on_random_queries(flavour, seed):
+    prover, jax_prover, plain = FLAVOURS[flavour]
+    col_logs, queries = _plan_case(seed)
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(0, P, size=1 << log, dtype=np.uint32)
+            for log in col_logs]
+    port_cols = [to_torch_u32(c) for c in cols]
+    jax_cols = [jnp.asarray(c) for c in cols]
+    values, dec = prover.commit(port_cols).decommit(queries, port_cols)
+    jvalues, jdec = jax_prover.commit(jax_cols).decommit(queries, jax_cols)
+    assert [v.value for v in values] == [v.value for v in jvalues]
+    assert [plain(h) for h in dec.hash_witness] == \
+        [plain(h) for h in jdec.hash_witness]
+    assert [v.value for v in dec.column_witness] == \
+        [v.value for v in jdec.column_witness]
+
+
+def _sharded_digests(flavour):
+    return ShardedMerkleProver(None, [], False, MERKLE_OPS[flavour]).digests
+
+
+@pytest.mark.parametrize("flavour,sharded", [
+    ("blake2s", False), ("blake2s", True),
+    ("poseidon252", False), ("poseidon252", True)])
+@pytest.mark.parametrize("k", [0, 1, 7])
+def test_digests_are_the_per_node_digests(flavour, sharded, k):
+    """A flavour's `digests` of [8, k] words is each node's own digest:
+    Blake2s the 32 little-endian bytes, Poseidon252 the felt whose word i
+    weighs 2^(32 i); int32 bit-views read as their unsigned words."""
+    rng = np.random.default_rng(k)
+    words = rng.integers(0, 1 << 32, size=(8, k), dtype=np.uint64) \
+        .astype(np.uint32)
+    if k:
+        words[:, 0] = [0, 1, 0xFFFFFFFF, 1 << 31, 0, 0, 7, 0]
+    prover = MERKLE_OPS[flavour].prover_cls()
+    digests = _sharded_digests(flavour) if sharded else prover.digests
+    for view in (words, words.view(np.int32)):
+        got = digests(view)
+        assert len(got) == k
+        for i in range(k):
+            if flavour == "blake2s":
+                assert got[i] == blake2s.digest_words_to_bytes(view[:, i])
+            else:
+                assert got[i] == FieldElement252(sum(
+                    (int(w) & 0xFFFFFFFF) << (32 * j)
+                    for j, w in enumerate(view[:, i])))
+    column = to_torch_u32(rng.integers(0, P, size=8, dtype=np.uint32))
+    tree = prover.commit([column])
+    assert tree.root() == digests(to_numpy_u32(tree.layers[0]))[0]
+
+
+def test_m31_many_is_m31_of_each_value():
+    ints = [0, 1, P - 1, 2, P - 2, 1 << 30] + np.random.default_rng(0) \
+        .integers(0, P, size=200).tolist()
+    got, want = M31.many(ints), [M31(v) for v in ints]
+    assert got == want and M31.many([]) == []
+    assert [type(m) for m in got] == [M31] * len(ints)
+    assert [hash(m) for m in got] == [hash(m) for m in want]
+    assert [m.to_bytes() for m in got] == [m.to_bytes() for m in want]
+    assert M31.into_slice(got) == M31.into_slice(want)
+    assert len(set(got) | set(want)) == len(set(ints))
+    assert got[2] + got[1] == M31(0) and got[2] == M31.from_int(-1)

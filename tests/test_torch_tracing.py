@@ -216,3 +216,32 @@ def test_profile_prove_sums_counters_over_a_span_and_its_children():
     rows = {r["span"]: r for r in span_table(tracing.records())}
     assert (rows["a"]["uploads"], rows["a"]["fetch_bytes"]) == (1, 8)
     assert (rows["a > b"]["uploads"], rows["a > b"]["fetch_bytes"]) == (0, 8)
+
+
+def test_every_tree_counts_its_decommitted_hashes_and_values():
+    """`decommit_hashes` and `decommit_values` land on each tree's
+    `assemble` span: its hash witness, and its queried values plus its
+    column witness (a FRI layer's tree queries every leaf it opens, 4
+    coordinates each, and keeps those values out of the proof)."""
+    from tstwo_tpu_torch.examples.wide_fibonacci import prove_wide_fibonacci
+
+    tracing.enable(sync=False)
+    with tracing.request(5):
+        proof, _, _ = prove_wide_fibonacci(5, 4, seed=1, device="cpu")
+    counts = [r["counts"] for r in tracing.records()
+              if r["name"] == "assemble"]
+    p = proof.commitment_scheme_proof
+    fri = [p.fri_proof.first_layer, *p.fri_proof.inner_layers]
+    # FRI's layers decommit first, then the commitment trees
+    assert len(counts) == len(fri) + len(p.decommitments) == len(fri) + 3
+    for c, layer in zip(counts, fri):
+        assert c["decommit_hashes"] == len(layer.decommitment.hash_witness)
+        assert layer.decommitment.column_witness == []
+        assert c["decommit_values"] > 0 and c["decommit_values"] % 4 == 0
+    for c, dec, values in zip(counts[len(fri):], p.decommitments,
+                              p.queried_values):
+        assert c["decommit_hashes"] == len(dec.hash_witness)
+        assert c["decommit_values"] == len(values) + len(dec.column_witness)
+    totals = tracing.counts()[5]
+    for name in ("decommit_hashes", "decommit_values"):
+        assert totals[name] == sum(c[name] for c in counts)

@@ -11,7 +11,9 @@ stwo-prover's fields module; validated against test-vectors/*.json).
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
+from itertools import repeat
 from typing import Iterable, List, Sequence, Tuple, Union
 
 P = (1 << 31) - 1  # 2^31 - 1
@@ -48,6 +50,14 @@ class M31:
 
     # Rust From<i32>/From<u32>
     from_ = from_int
+
+    @staticmethod
+    def many(values: Sequence[int]) -> List["M31"]:
+        """`[M31(v) for v in values]` in bulk: each element made bare and
+        its slot set, without a call of `__init__`."""
+        out = list(map(object.__new__, repeat(M31, len(values))))
+        deque(map(_M31_VALUE.__set__, out, values), maxlen=0)
+        return out
 
     @staticmethod
     def partial_reduce(v: int) -> "M31":
@@ -115,6 +125,7 @@ class M31:
 
 M31_ZERO = M31(0)
 M31_ONE = M31(1)
+_M31_VALUE = M31.__dict__["value"]  # the slot `M31.many` fills
 
 
 @dataclass(frozen=True, slots=True)

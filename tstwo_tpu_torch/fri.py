@@ -181,26 +181,14 @@ def compute_decommitment_positions_and_witness_evals(
     with `mesh` this rank's [4, n / D] slice; only the query-adjacent
     witness positions are gathered (from the ranks that hold them) and
     copied to the host, never the whole column."""
-    decommitment_positions: List[int] = []
-    witness_positions: List[int] = []
-    i = 0
-    qp = list(query_positions)
-    while i < len(qp):
-        coset = qp[i] >> fold_step
-        start = coset << fold_step
-        end = start + (1 << fold_step)
-        subset_queries = []
-        while i < len(qp) and (qp[i] >> fold_step) == coset:
-            subset_queries.append(qp[i])
-            i += 1
-        sq = 0
-        for pos in range(start, end):
-            decommitment_positions.append(pos)
-            if sq < len(subset_queries) and subset_queries[sq] == pos:
-                sq += 1
-                continue
-            witness_positions.append(pos)
-    if not witness_positions:
+    queries = np.asarray(query_positions, dtype=np.int64)
+    # every position of each queried coset, in order; those not queried
+    # are the witness
+    positions = ((np.unique(queries >> fold_step) << fold_step)[:, None]
+                 + np.arange(1 << fold_step)).ravel()
+    witness_positions = positions[~np.isin(positions, queries)]
+    decommitment_positions = positions.tolist()
+    if not len(witness_positions):
         return decommitment_positions, []
     if mesh is not None:
         from .parallel.ops import gather_at
@@ -209,11 +197,10 @@ def compute_decommitment_positions_and_witness_evals(
         vals = to_numpy_u32(gather_at(
             mesh, [([values], witness_positions, log, True)])[0])
     else:
-        idx = upload(torch.tensor(witness_positions, dtype=torch.int64),
-                     values.device)
+        idx = upload(torch.from_numpy(witness_positions), values.device)
         vals = to_numpy_u32(values.index_select(-1, idx))
-    return decommitment_positions, [QM31.from_ints(vals[:, k].tolist())
-                                    for k in range(vals.shape[1])]
+    return decommitment_positions, [QM31.from_ints(v)
+                                    for v in vals.T.tolist()]
 
 
 def compute_decommitment_positions_and_rebuild_evals(

@@ -64,8 +64,8 @@ class ShardedMerkleProver(MerkleProver):
         self.sharded = sharded
         self.merkle_ops = merkle_ops
 
-    def digest(self, words):
-        return self.merkle_ops.prover_cls().digest(words)
+    def digests(self, words):
+        return self.merkle_ops.prover_cls().digests(words)
 
     @staticmethod
     def commit(mesh: Mesh, columns: Sequence[torch.Tensor],
@@ -113,11 +113,11 @@ class ShardedMerkleProver(MerkleProver):
         for plan in plans:
             log = plan["log"]
             slot = {}
-            if plan["hash_idxs"]:
+            if len(plan["hash_idxs"]):
                 slot["hashes"] = len(requests)
                 requests.append(([self.layers[log + 1]], plan["hash_idxs"],
                                  log + 1, self.sharded and log + 1 >= k))
-            if plan["node_idxs"] and plan["cols"]:
+            if len(plan["node_idxs"]) and plan["cols"]:
                 slot["values"] = len(requests)
                 requests.append((plan["cols"], plan["node_idxs"], log,
                                  self.mesh.shards(log)))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from .fft import shard_column
@@ -115,14 +116,13 @@ def gather_at(mesh: Mesh, requests) -> List[torch.Tensor]:
     answers, owners, spots = [], [], []
     for i, (entries, idxs, log_n, sharded) in enumerate(requests):
         cols = [e if e.ndim == 2 else e[None, :] for e in entries]
+        idx = torch.from_numpy(np.asarray(idxs, dtype=np.int64))
         if not sharded:
-            idx = torch.tensor(idxs, dtype=torch.int64, device=cols[0].device)
+            idx = idx.to(cols[0].device)
             out[i] = torch.cat([c.index_select(-1, idx) for c in cols])
             continue
         span = log_n - k
-        owner = torch.tensor([j >> span for j in idxs], dtype=torch.int64)
-        local = torch.tensor([j & ((1 << span) - 1) for j in idxs],
-                             dtype=torch.int64)
+        owner, local = idx >> span, idx & ((1 << span) - 1)
         mine = owner == mesh.rank
         rows = sum(c.shape[0] for c in cols)
         vals = torch.zeros((rows, len(idxs)), dtype=torch.int32,

@@ -18,8 +18,9 @@ After one warm prove it runs three more: one plain, one under the span tree
 one under torch.profiler.  Prints one JSON object: the walls, the span tree
 (one row per path of span names, in the order they first open: calls, host
 ms, self ms (host less the child spans), device ms from the spans' CUDA
-events, hand-kernel launches, and the uploads and fetches with their
-bytes, each summed over the span and its children), the hand-kernel
+events, hand-kernel launches, the uploads and fetches with their
+bytes, and the hashes and values the decommitment assembled, each summed
+over the span and its children), the hand-kernel
 launches of the plain prove (`kernels.LAUNCHES`), and the profile's top
 kernels by device time.  Needs a CUDA device.
 """
@@ -31,7 +32,8 @@ import subprocess
 import time
 from typing import Dict, List
 
-COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes")
+COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes",
+            "decommit_hashes", "decommit_values")
 
 
 def span_table(records: List[dict]) -> List[dict]:

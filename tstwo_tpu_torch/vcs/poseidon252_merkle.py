@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..channel.poseidon import (P252, FieldElement252, Poseidon252Channel,
@@ -85,6 +86,10 @@ class Poseidon252MerkleProver(MerkleProver):
         return pos.merkle_layer(prev, columns, 1 << log, device)
 
     @staticmethod
-    def digest(words) -> FieldElement252:
-        return FieldElement252(
-            sum((int(w) & 0xFFFFFFFF) << (32 * i) for i, w in enumerate(words)))
+    def digests(words) -> List[FieldElement252]:
+        """Felts [8, k] (word i of a felt weighs 2^(32 i)) as the proof's
+        FieldElement252s: each felt's 32 little-endian bytes read as one
+        integer."""
+        flat = np.ascontiguousarray(np.asarray(words).T, dtype="<u4").tobytes()
+        return [FieldElement252(int.from_bytes(flat[i:i + 32], "little"))
+                for i in range(0, len(flat), 32)]

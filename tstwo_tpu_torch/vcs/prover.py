@@ -2,9 +2,10 @@
 
 Layer hashing runs batched on the columns' device (ops/blake2s) and every
 layer stays there; the query-dependent decommitment logic is host-side
-but touches only the queried indices: the peekable merge is computed on
-indices alone, then the few needed hashes and column values are gathered
-on the device and copied to the host in one transfer per tree.
+but touches only the queried indices: the traversal is planned on indices
+alone, in numpy arrays for the whole tree, then the few needed hashes and
+column values are gathered on the device, copied to the host in one
+transfer per tree and turned into the proof's digests and M31s in bulk.
 (reference vcs/prover.ts:13-109, mirroring Rust stwo vcs/prover.rs.)
 """
 from __future__ import annotations
@@ -12,14 +13,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..fields import M31
-from ..tracing import span
-from ..ops.blake2s import TAIL_LOG, digest_words_to_bytes, merkle_tail
+from ..tracing import count, span
+from ..ops.blake2s import TAIL_LOG, merkle_tail
 from ..utils import to_numpy_u32, upload
 from .blake2s_merkle import commit_on_layer
-from .utils import Peekable, next_decommitment_node
 
 
 @dataclass
@@ -49,63 +50,91 @@ def column_count(cols: Sequence[torch.Tensor]) -> int:
     return sum(int(c.shape[0]) if c.ndim == 2 else 1 for c in cols)
 
 
+# a node of the traversal as one int64 key: its depth below the leaves
+# (the layer of log n_layers - 1 - depth) above _NODE_BITS, its index below,
+# so that sorting keys orders the traversal (layers big->small, nodes up)
+_NODE_BITS = 40
+_NODE_MASK = (1 << _NODE_BITS) - 1
+
+
 def plan_decommitment(queries_per_log_size: Mapping[int, Sequence[int]],
                       n_layers: int, columns: Sequence[torch.Tensor],
                       log_sizes: Optional[Sequence[int]] = None):
-    """Index-only traversal: per layer (big->small) the visited nodes,
-    which child hashes enter the witness, and which nodes carry queried
-    values (reference vcs/prover.ts:32-109).  `log_sizes` are the
-    columns' log sizes where their lengths do not say it (the rank's slice
-    of a sharded column)."""
+    """Index-only traversal, per layer (big->small): the visited nodes
+    `node_idxs`, the children whose hashes enter the witness `hash_idxs`,
+    and `queried`, which of the nodes carry queried values (reference
+    vcs/prover.ts:32-109).  Queries are sorted and distinct.  A layer visits
+    its own queries and the parents of the layer below's nodes, so the
+    visited nodes of a tree are every query's ancestors: one array for the
+    whole tree, split by layer.  `log_sizes` are the columns' log sizes
+    where their lengths do not say it (the rank's slice of a sharded
+    column)."""
     if log_sizes is None:
         log_sizes = [int(c.shape[-1]).bit_length() - 1 for c in columns]
     order = sorted(range(len(columns)), key=lambda i: -log_sizes[i])
-    col_idx = 0
+    top = n_layers - 1
+    visits, direct = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for log, positions in queries_per_log_size.items():
+        if not 0 <= log <= top or not len(positions):
+            continue
+        q = np.asarray(positions, dtype=np.int64)
+        up = np.arange(log + 1, dtype=np.int64)[:, None]
+        direct.append(((top - log) << _NODE_BITS) | q)
+        visits.append(((top - log + up) << _NODE_BITS) | (q >> up))
+    keys = np.unique(np.concatenate(visits, axis=None))
+    depth, nodes = keys >> _NODE_BITS, keys & _NODE_MASK
+    queried = np.isin(keys, np.concatenate(direct), assume_unique=True)
+    # the two children of every node above the leaves; those the layer
+    # below does not visit are the hash witness
+    inner = depth > 0
+    children = ((((depth[inner] - 1) << _NODE_BITS) | (nodes[inner] << 1)
+                 )[:, None] + np.arange(2)).ravel()
+    at = np.minimum(np.searchsorted(keys, children), len(keys) - 1)
+    witness = children[keys[at] != children]
+    bounds = np.arange(n_layers + 1, dtype=np.int64) << _NODE_BITS
+    layer_at = np.searchsorted(keys, bounds)
+    # a child at depth d is the witness of its parent's layer, depth d + 1
+    witness_at = np.searchsorted(witness, bounds - (1 << _NODE_BITS))
+    witness = witness & _NODE_MASK
     layer_plans = []
-    last_layer_queries: List[int] = []
-    for layer_log in range(n_layers - 1, -1, -1):
+    col_idx = 0
+    for d in range(n_layers):
+        layer_log = top - d
         layer_cols: List[torch.Tensor] = []
         while (col_idx < len(order)
                and log_sizes[order[col_idx]] == layer_log):
             layer_cols.append(columns[order[col_idx]])
             col_idx += 1
-        has_children = layer_log + 1 < n_layers
-        plan = {
+        a, b = layer_at[d], layer_at[d + 1]
+        layer_plans.append({
             "log": layer_log,
             "cols": layer_cols,
-            "steps": [],  # (node, [child hash idxs], queried: bool)
-            "hash_idxs": [],
-            "node_idxs": [],
-        }
-        prev_q = Peekable(last_layer_queries)
-        direct_q = Peekable(list(queries_per_log_size.get(layer_log, [])))
-        layer_total: List[int] = []
-        while True:
-            node = next_decommitment_node(prev_q, direct_q)
-            if node is None:
-                break
-            witness_children = []
-            if has_children:
-                if not prev_q.next_if_eq(2 * node):
-                    witness_children.append(2 * node)
-                if not prev_q.next_if_eq(2 * node + 1):
-                    witness_children.append(2 * node + 1)
-            queried = direct_q.next_if_eq(node)
-            plan["steps"].append((node, witness_children, queried))
-            plan["hash_idxs"].extend(witness_children)
-            plan["node_idxs"].append(node)
-            layer_total.append(node)
-        last_layer_queries = layer_total
-        layer_plans.append(plan)
+            "node_idxs": nodes[a:b],
+            "hash_idxs": witness[witness_at[d]:witness_at[d + 1]],
+            "queried": queried[a:b],
+        })
     return layer_plans
 
 
-def _gather(cols: Sequence[torch.Tensor], idxs: Sequence[int]):
-    """Rows of every column entry at `idxs`, as one device tensor
-    [n_columns, len(idxs)]."""
-    idx = upload(torch.tensor(idxs, dtype=torch.int64), cols[0].device)
-    return torch.cat([(c if c.ndim == 2 else c[None, :]).index_select(-1, idx)
-                      for c in cols], dim=0)
+def _gather(requests: Sequence[Tuple[Sequence[torch.Tensor], Sequence[int]]],
+            device) -> List[torch.Tensor]:
+    """For each request (column entries, idxs), the rows of every entry at
+    idxs, as one device tensor [n_columns, len(idxs)].  Every request's
+    indices go to the device in one upload: a copy from pageable host
+    memory synchronises the stream, so an upload per request would wait
+    for the gathers queued before it."""
+    if not requests:
+        return []
+    flat = upload(torch.from_numpy(np.concatenate(
+        [np.asarray(idxs, dtype=np.int64) for _, idxs in requests])), device)
+    out, at = [], 0
+    for cols, idxs in requests:
+        idx = flat[at:at + len(idxs)]
+        at += len(idxs)
+        rows = [(c if c.ndim == 2 else c[None, :]).index_select(-1, idx)
+                for c in cols]
+        out.append(rows[0] if len(rows) == 1 else torch.cat(rows, dim=0))
+    return out
 
 
 def empty_tree_device(device) -> torch.device:
@@ -139,10 +168,16 @@ class MerkleProver:
         self._root = None
 
     @staticmethod
-    def digest(words) -> bytes:
-        """A node of a layer (its 8 words on the host) as the proof holds
-        it; the Poseidon252 prover overrides this."""
-        return digest_words_to_bytes(words)
+    def digests(words) -> List[bytes]:
+        """The nodes of a layer, their words [8, k] on the host, as the
+        proof holds them: one little-endian byte string cut every 32 bytes.
+        Each flavour gives its own."""
+        flat = np.ascontiguousarray(np.asarray(words).T, dtype="<u4").tobytes()
+        return [flat[i:i + 32] for i in range(0, len(flat), 32)]
+
+    def digest(self, words):
+        """One node, its 8 words on the host, as the proof holds it."""
+        return self.digests(np.asarray(words).reshape(8, 1))[0]
 
     @staticmethod
     def _hash_layer(log: int, prev: Optional[torch.Tensor],
@@ -207,18 +242,18 @@ class MerkleProver:
         """Every hash and value the witness needs, gathered on the device
         and copied to the host in one transfer: per plan, the numpy
         [8, hashes] and [columns, nodes] arrays (or None)."""
-        parts, slots = [], []
+        requests, slots = [], []
         for plan in plans:
             log = plan["log"]
             slot = {}
-            if plan["hash_idxs"]:
-                slot["hashes"] = len(parts)
-                parts.append(_gather([self.layers[log + 1]], plan["hash_idxs"]))
-            if plan["node_idxs"] and plan["cols"]:
-                slot["values"] = len(parts)
-                parts.append(_gather(plan["cols"], plan["node_idxs"]))
+            if len(plan["hash_idxs"]):
+                slot["hashes"] = len(requests)
+                requests.append(([self.layers[log + 1]], plan["hash_idxs"]))
+            if len(plan["node_idxs"]) and plan["cols"]:
+                slot["values"] = len(requests)
+                requests.append((plan["cols"], plan["node_idxs"]))
             slots.append(slot)
-        host = _to_host(parts)
+        host = _to_host(_gather(requests, self.layers[0].device))
         return [(host[slot["hashes"]] if "hashes" in slot else None,
                  host[slot["values"]] if "values" in slot else None)
                 for slot in slots]
@@ -226,20 +261,21 @@ class MerkleProver:
     def _assemble(self, plans, witness_parts
                   ) -> Tuple[List[M31], MerkleDecommitment]:
         """The queried values and the decommitment, in the traversal's
-        order, from the host arrays of `_witness_parts`."""
-        queried: List[M31] = []
-        dec = MerkleDecommitment()
-        for plan, (hashes, values) in zip(plans, witness_parts):
-            hi = 0
-            for si, (node, witness_children, was_queried) in enumerate(
-                    plan["steps"]):
-                for _ in witness_children:
-                    dec.hash_witness.append(self.digest(hashes[:, hi]))
-                    hi += 1
-                node_values = ([M31(int(v)) for v in values[:, si]]
-                               if values is not None else [])
-                if was_queried:
-                    queried.extend(node_values)
-                else:
-                    dec.column_witness.extend(node_values)
-        return queried, dec
+        order, from the host arrays of `_witness_parts`: the hash witness
+        is every layer's hashes in turn, and a layer's values, node by
+        node, go to the queried values or the column witness."""
+        hashes = [np.zeros((8, 0), np.uint32)]
+        queried, witness = [np.zeros(0, np.uint32)], [np.zeros(0, np.uint32)]
+        for plan, (layer_hashes, values) in zip(plans, witness_parts):
+            if layer_hashes is not None:
+                hashes.append(layer_hashes)
+            if values is not None:
+                rows = values.T
+                queried.append(rows[plan["queried"]].ravel())
+                witness.append(rows[~plan["queried"]].ravel())
+        hashes = np.concatenate(hashes, axis=1)
+        queried, witness = np.concatenate(queried), np.concatenate(witness)
+        count("decommit_hashes", hashes.shape[1])
+        count("decommit_values", len(queried) + len(witness))
+        return M31.many(queried.tolist()), MerkleDecommitment(
+            self.digests(hashes), M31.many(witness.tolist()))
