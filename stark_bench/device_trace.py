@@ -1,8 +1,8 @@
 """What a torch.profiler trace of some proofs says about the device.
 
-The arithmetic is that of the program's `profile_prove.py` (its busy share:
-device-side events only, profile_prove.py:176-191), frozen here and read
-from the timeline rather than from sums: the profiled window runs from the
+Device-side events only (a launching host operator also reports the time
+of the kernels it launched), read from the timeline rather than from the
+profiler's sums, and frozen here: the profiled window runs from the
 start of the first `bench.proof` range to the end of the last; the device
 is busy while a kernel, a copy or a memset runs on it (the union of their
 intervals); an idle gap is a stretch of the window in which none runs, and

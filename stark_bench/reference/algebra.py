@@ -19,6 +19,24 @@ R = (2, 1)  # u^2 = 2 + i
 QM31 = Tuple[int, int, int, int]
 
 
+class Ops:
+    """M31 on int64 tensors (or ints): canonical in, canonical out.  An
+    AIR's row evaluation written over these operations runs here and, in
+    the tests, over a field that counts them (its `constraint_ops`)."""
+
+    @staticmethod
+    def add(a, b):
+        return (a + b) % P
+
+    @staticmethod
+    def sub(a, b):
+        return (a - b) % P
+
+    @staticmethod
+    def mul(a, b):
+        return (a * b) % P
+
+
 # -- scalars -----------------------------------------------------------------
 
 def cm_mul(x, y):

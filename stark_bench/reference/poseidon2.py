@@ -32,9 +32,9 @@ from typing import List, Tuple
 
 import torch
 
-from .algebra import (P, CanonicDomain, bit_reverse, double_x, eval_at_point,
-                      evaluate, interpolate, point_of_index, q, q_mul, q_pow,
-                      subgroup_gen_index, vinv)
+from .algebra import (P, CanonicDomain, Ops, bit_reverse, double_x,
+                      eval_at_point, evaluate, interpolate, point_of_index, q,
+                      q_mul, q_pow, subgroup_gen_index, vinv)
 from .hashes import blake2s_grind, bytes_to_words, poseidon_grind
 from .merkle import TREES, MerkleTree
 from .prover import (CHANNELS, _decommitment, _pairs, _values_at,
@@ -59,22 +59,6 @@ ROW_BLOCK = 1 << 18  # rows of the evaluation domain evaluated at once
 
 
 # -- field operations ------------------------------------------------------
-
-class Ops:
-    """M31 on int64 tensors (or ints): canonical in, canonical out."""
-
-    @staticmethod
-    def add(a, b):
-        return (a + b) % P
-
-    @staticmethod
-    def sub(a, b):
-        return (a - b) % P
-
-    @staticmethod
-    def mul(a, b):
-        return (a * b) % P
-
 
 def q_add(f, x, y):
     return [f.add(a, b) for a, b in zip(x, y)]

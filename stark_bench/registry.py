@@ -1,13 +1,24 @@
 """Finds every part of a cell by the names in BENCHMARK.json.
 
-  configuration  the `file` of its entry in `configs`
-  AIR recipe     stark_bench/recipes/<config air.recipe>.py (the port's API)
-  reference      stark_bench/reference/<config air.name>.py
+  configuration  the `file` of its entry in `configs`; its `proof_parts`,
+                 where it has them, name the numbers compared and the
+                 proof's keys each covers (stark_bench/compare.py; a STARK
+                 proof's five without them)
+  AIR recipe     stark_bench/recipes/<config air.recipe>.py (the port's
+                 API): `prove(config, log_n, trace_seed, device)` and
+                 `proof_fields(proof)`, the proof as plain data
+  reference      stark_bench/reference/<config air.name>.py:
+                 `trace_inputs(trace_seed, log_n)`, `prove(inputs, config,
+                 log_n, device)`, and optionally `control(inputs, config,
+                 log_n, device)` -> (label, proof), the control of the
+                 comparison (stark_bench/control.py; one query fewer
+                 without it)
   traffic mix    stark_bench/traffic/<traffic>.json
   metric reader  stark_bench/metrics/<metric name>.py, its `read(ctx)`
 
 A later cell, configuration, traffic mix or per-layer metric is new files
-and new entries: nothing here names one.
+and new entries, whether or not its proof is a STARK proof: nothing here
+names one.
 """
 from __future__ import annotations
 
@@ -62,8 +73,15 @@ def recipe(root: Path, cfg: dict) -> ModuleType:
                       f"{PACKAGE}_recipe_{name}")
 
 
-def reference(cfg: dict) -> ModuleType:
-    return importlib.import_module(f"{PACKAGE}.reference.{cfg['air']['name']}")
+def reference(root: Path, cfg: dict) -> ModuleType:
+    """The configuration's reference module under `root`: the package's
+    own where `root` is this checkout, else loaded from its file there
+    (its relative imports resolve in the package's reference/)."""
+    name = f"{PACKAGE}.reference.{cfg['air']['name']}"
+    if Path(root).resolve() == ROOT:
+        return importlib.import_module(name)
+    return _from_file(root / PACKAGE / "reference" /
+                      f"{cfg['air']['name']}.py", name)
 
 
 def metric_reader(root: Path, name: str) -> Callable:

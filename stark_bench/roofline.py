@@ -3,20 +3,21 @@
 Copied from the program's own sound arithmetic so that a later change to
 the program cannot move it:
 
-- the peaks of one H100 SXM and the integer rate (chip_smoke.py:123-128):
-  3.35 TB/s of device memory; 67 TFLOP/s of float32 outside the tensor
-  cores = 132 SMs x 128 lanes x 2 x 1.98 GHz, of which an SM issues int32
-  operations on half the lanes, an add, xor or shift being one operation:
-  1.675e13 integer operations a second.  The clock is the data sheet's
-  boost clock, not one sampled: the traced run prints `clocks.sm` and
-  `power.limit` beside its numbers;
-- 16 integer operations an M31 butterfly (chip_smoke.py:136-139) and 656
-  a Blake2s block compression, the xors and shifts of its 80 G-mixes and
-  the 16 xors of the fold (chip_smoke.py:129-135);
+- the peaks of one H100 SXM and the integer rate (chip_smoke.py's
+  HBM_BYTES_PER_S and INT32_OPS_PER_S): 3.35 TB/s of device memory; 67
+  TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x 2 x
+  1.98 GHz, of which an SM issues int32 operations on half the lanes, an
+  add, xor or shift being one operation: 1.675e13 integer operations a
+  second.  The clock is the data sheet's boost clock, not one sampled: the
+  traced run prints `clocks.sm` and `power.limit` beside its numbers;
+- 16 integer operations an M31 butterfly and 656 a Blake2s block
+  compression, the xors and shifts of its 80 G-mixes and the 16 xors of
+  the fold (tests/torch_cuda_cases.py's BUTTERFLY_OPS and
+  B2S_OPS_PER_BLOCK);
 - a transform's bytes, each input once and each output once, the
-  twiddles once (chip_smoke.py:345); a transform zero-extended from 2^m
-  values is counted by the log2(m) layers of its source size
-  (chip_smoke.py:346).
+  twiddles once; a transform zero-extended from 2^m values is counted by
+  the log2(m) layers of its source size (the `cost` of
+  tests/torch_cuda_cases.py's `cfft_case`).
 
 A share is the least time the card could take, the larger of operations
 over the integer rate and bytes over the memory rate, over the device

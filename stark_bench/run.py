@@ -11,7 +11,9 @@ the host after torch.cuda.synchronize().  With `--trace 1` the window is a
 few proofs under torch.profiler and a few under the program's synchronised
 spans, and the metrics are the cell's per-layer metrics.  After the window
 the reference proves a sample of the window's traces again and every field
-of those proofs is compared; the numbers compared, each beside its limit,
+of those proofs is compared, one number for each part of the proof that the
+configuration names (stark_bench/compare.py); the numbers compared, each
+beside its limit, then the failed proofs and the proofs compared,
 are the last lines on standard error and the last key of the result, the
 last line on standard output.  Exits with 2 without enough CUDA devices
 and with 3 if a JAX module was loaded; neither prints a result.
@@ -67,6 +69,7 @@ class Cell:
 
     def __init__(self, root: Path, bench: dict, name: str, seed: int):
         from . import registry
+        from .compare import parts_of
         from .traffic import ClosedLoop
 
         self.root = root
@@ -75,7 +78,8 @@ class Cell:
         self.traffic = registry.traffic(root, entry["traffic"])
         self.loop = ClosedLoop(self.traffic, seed)
         self.recipe = registry.recipe(root, self.config)
-        self.reference = registry.reference(self.config)
+        self.reference = registry.reference(root, self.config)
+        self.parts = parts_of(self.config)
         self.log_n = self.loop.log_n_rows
 
     def prove(self, trace_seed: int, device):
@@ -109,11 +113,12 @@ def _timed_proofs(cell: Cell, device, deadline=None, count=None,
 
 
 def _check(cell: Cell, device) -> tuple:
-    """Prove the sampled traces again with the reference; the per-part
-    counts of differing fields, and how many proofs were compared."""
-    from .compare import PARTS, compare
+    """Prove the sampled traces again with the reference; the counts of
+    differing fields of each of the cell's parts, and how many proofs were
+    compared."""
+    from .compare import compare
 
-    totals = dict.fromkeys(PARTS, 0)
+    totals = dict.fromkeys(cell.parts, 0)
     sample = [(i, cell.recipe.proof_fields(p)) for i, p in cell.loop.sample()]
     gc.collect()
     if device.type == "cuda":
@@ -124,7 +129,7 @@ def _check(cell: Cell, device) -> tuple:
         inputs = cell.reference.trace_inputs(cell.loop.trace_seed(index),
                                              cell.log_n)
         ref = cell.reference.prove(inputs, cell.config, cell.log_n, device)
-        for part, n in compare(fields, ref).items():
+        for part, n in compare(fields, ref, cell.parts).items():
             totals[part] += n
     return totals, len(sample)
 

@@ -14,8 +14,9 @@ import sys
 import pytest
 import torch
 
-from bench_fixtures import REPO, tiny_checkout
-from stark_bench import registry, run
+from bench_fixtures import REPO, product_checkout, tiny_checkout
+from stark_bench import control, registry, run
+from stark_bench.compare import PARTS, parts_of
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -92,16 +93,25 @@ def test_cell_resolves_its_files_by_name(cell):
     assert mix["log_n_rows"] >= 1 and cfg["name"] == entry["config"]
     recipe = registry.recipe(REPO, cfg)
     assert callable(recipe.prove) and callable(recipe.proof_fields)
-    reference = registry.reference(cfg)
+    reference = registry.reference(REPO, cfg)
     assert callable(reference.prove) and callable(reference.trace_inputs)
+    assert parts_of(cfg)  # raises where the parts compare nothing
     for m in registry.metrics_of(BENCH, "per_layer", cell):
         assert callable(registry.metric_reader(REPO, m["name"]))
 
 
-def test_a_new_configuration_traffic_and_metric_need_only_new_files(tmp_path):
+@pytest.mark.parametrize("kind", ["stark", "not_stark"])
+def test_a_new_configuration_traffic_and_metric_need_only_new_files(
+        tmp_path, kind):
     """A throwaway configuration, traffic mix and per-layer metric, added
-    as new files and entries in a copy, are run with no edit."""
-    root = tiny_checkout(tmp_path, name="throwaway")
+    as new files and entries in a copy, are run with no edit: a STARK
+    configuration, and a lookup argument's (bench_fixtures.product_checkout)
+    whose proof is compared over its own `proof_parts` and whose reference
+    brings its own control."""
+    if kind == "stark":
+        root = tiny_checkout(tmp_path, name="throwaway")
+    else:
+        root = product_checkout(tmp_path, name="throwaway")
     (root / "stark_bench" / "metrics" / "throwaway.rows.py").write_text(
         "def read(ctx):\n    return float(1 << ctx.log_n)\n")
     bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -114,7 +124,19 @@ def test_a_new_configuration_traffic_and_metric_need_only_new_files(tmp_path):
                           0.5, True, torch.device("cpu"), t0=0.0)
     assert result["correct"] is True
     assert result["metrics"]["throwaway.rows"]["value"] == 16.0
-    assert "pcs.decommit_ms" in result["metrics"]
+    parts = (list(PARTS) if kind == "stark" else
+             ["sumcheck", "layer_masks", "output_claims"])
+    assert list(result["checks"]) == parts + ["failed_proofs",
+                                              "proofs_compared"]
+    assert all(result["checks"][p]["value"] == 0 for p in parts)
+    assert result["checks"]["proofs_compared"]["value"] == 2
+    assert ("pcs.decommit_ms" in result["metrics"]) == (kind == "stark")
+    made = control.readings(root, registry.load(root), "throwaway.cell",
+                            2 ** 33 + 5, torch.device("cpu"))
+    assert made["control"] == ("n_queries - 1" if kind == "stark"
+                               else "first value changed")
+    assert list(made["readings"]) == parts
+    assert any(n > 0 for n in made["readings"].values())
 
 
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):

@@ -13,6 +13,7 @@ import torch
 
 from bench_fixtures import tiny_checkout
 from stark_bench import registry, run
+from stark_bench.compare import PARTS
 
 
 def _run(root, device="cpu", seconds=1.0):
@@ -74,6 +75,31 @@ def test_a_broken_timed_path_is_not_correct(tmp_path, monkeypatch, fault):
         return
     result = _run(tiny_checkout(tmp_path))
     assert result["correct"] is False
+
+
+@pytest.mark.parametrize("sides", ["program", "program_and_reference"])
+def test_a_proof_with_none_of_its_parts_is_not_correct(tmp_path,
+                                                      monkeypatch, sides):
+    """A recipe whose proof holds none of the configuration's parts, beside
+    the reference's whole proof or beside a reference that holds none
+    either: a part that one proof or neither holds counts as differing."""
+    real_recipe, real_reference = registry.recipe, registry.reference
+
+    def no_fields(root, cfg):
+        module = real_recipe(root, cfg)
+        return SimpleNamespace(prove=module.prove, proof_fields=lambda _: {})
+
+    def empty_reference(root, cfg):
+        module = real_reference(root, cfg)
+        return SimpleNamespace(trace_inputs=module.trace_inputs,
+                               prove=lambda *args: {})
+
+    monkeypatch.setattr(registry, "recipe", no_fields)
+    if sides == "program_and_reference":
+        monkeypatch.setattr(registry, "reference", empty_reference)
+    result = _run(tiny_checkout(tmp_path))
+    assert result["correct"] is False
+    assert all(result["checks"][part]["value"] >= 1 for part in PARTS)
 
 
 def test_a_proof_that_fails_in_the_window_is_not_correct(tmp_path,

@@ -9,6 +9,7 @@ from collections import Counter
 
 import pytest
 
+from bench_fixtures import CountingField
 from stark_bench import registry, roofline
 from stark_bench.reference import merkle
 from stark_bench.reference import poseidon2 as air
@@ -20,34 +21,16 @@ CONFIG = {"air": {"name": "poseidon2"}, "merkle_channel": "blake2s",
                        "log_last_layer_degree_bound": 0}}
 
 
-class _Counting:
-    """A field that counts: 9 an M31 product, 3 an addition."""
-
-    ops = 0
-
-    @classmethod
-    def add(cls, a, b):
-        cls.ops += 3
-        return 0
-
-    sub = add
-
-    @classmethod
-    def mul(cls, a, b):
-        cls.ops += 9
-        return 0
-
-
 @pytest.mark.parametrize("log_n", [3, 17])
 def test_constraint_ops_equal_a_brute_count_of_the_evaluation(log_n):
-    _Counting.ops = 0
+    CountingField.ops = 0
     q = (1, 2, 3, 4)
-    air.row_composition(_Counting, [0] * air.N_COLUMNS,
+    air.row_composition(CountingField, [0] * air.N_COLUMNS,
                         [0] * air.INTERACTION_COLUMNS, [0] * 4,
                         [q] * air.N_STATE, q, [q] * air.N_CONSTRAINTS, q, 5)
     assert air.constraint_ops(CONFIG, log_n) == \
-        _Counting.ops << (log_n + air.LOG_EXPAND)
-    assert _Counting.ops == 151428
+        CountingField.ops << (log_n + air.LOG_EXPAND)
+    assert CountingField.ops == 151428
 
 
 def test_cfft_transforms_are_those_the_reference_makes(monkeypatch):
@@ -107,7 +90,7 @@ def test_registry_finds_every_file_of_the_cell():
     assert mix["log_n_rows"] == 17
     recipe = registry.recipe(registry.ROOT, cfg)
     assert callable(recipe.prove) and callable(recipe.proof_fields)
-    reference = registry.reference(cfg)
+    reference = registry.reference(registry.ROOT, cfg)
     assert reference is air
     metrics = [m["name"] for m in registry.metrics_of(bench, "per_layer",
                                                       CELL)]

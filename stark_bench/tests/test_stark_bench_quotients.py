@@ -67,7 +67,7 @@ def test_quotient_bytes_of_the_cells(cell, n_bytes):
     entry = registry.workload(bench, cell)
     cfg = registry.config(REPO, bench, entry["config"])
     log_n = registry.traffic(REPO, entry["traffic"])["log_n_rows"]
-    trees = registry.reference(cfg).merkle_trees(cfg, log_n)
+    trees = registry.reference(registry.ROOT, cfg).merkle_trees(cfg, log_n)
     assert METRIC.quotient_bytes(trees) == n_bytes
 
 

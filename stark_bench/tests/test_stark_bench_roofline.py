@@ -7,6 +7,7 @@ from collections import Counter
 import pytest
 import torch
 
+from bench_fixtures import CountingField
 from stark_bench import roofline
 from stark_bench.reference import merkle, prover
 from stark_bench.reference import wide_fibonacci as air
@@ -45,6 +46,19 @@ def test_merkle_blocks_equal_the_blocks_the_reference_hashes(
     assert sum(counted) == sum(roofline.merkle_blocks(t)[0] for t in trees)
     ops, _ = roofline.blake2s_work(trees)
     assert ops == roofline.B2S_OPS_PER_BLOCK * sum(counted)
+
+
+@pytest.mark.parametrize("n_columns", [3, 6, 100])
+def test_constraint_ops_equal_a_brute_count_of_the_evaluation(n_columns):
+    CountingField.ops = 0
+    q = (1, 2, 3, 4)
+    air.row_composition(CountingField, [0] * n_columns,
+                        [q] * (n_columns - 2), 5)
+    for log_n in (4, 20):
+        assert air.constraint_ops(_config(n_columns, 1, 0), log_n) == \
+            CountingField.ops << (log_n + air.CONSTRAINT_LOG_BLOWUP)
+    if n_columns == 100:
+        assert CountingField.ops == 6207
 
 
 def _structural_butterflies(batch: int, log_n: int, m: int) -> int:
