@@ -16,7 +16,7 @@ import torch
 
 from ..fields import M31, QM31
 from ..ops.fri_ops import _deinterleave
-from ..tracing import span
+from ..tracing import count, span
 from ..utils import entry_device
 from . import npqm31
 from .mle import BaseMle, Mle
@@ -353,11 +353,14 @@ class GkrArtifact:
 def prove_batch(channel, input_layer_by_instance: List[Layer]
                 ) -> Tuple[GkrBatchProof, GkrArtifact]:
     """reference gkr_prover.ts:440-580.  Every input layer lives on one
-    device, where the eq tables are built too."""
+    device, where the eq tables are built too.  Spans `gkr_layers` (the
+    circuits), `gkr_eq_evals` and `gkr_sumcheck` (each layer's); counter
+    `gkr_instances`."""
     n_instances = len(input_layer_by_instance)
     n_layers_by_instance = [l.n_variables() for l in input_layer_by_instance]
     n_layers = max(n_layers_by_instance)
     device = input_layer_by_instance[0].device()
+    count("gkr_instances", n_instances)
 
     layers_by_instance = []
     with span("gkr_layers"):
@@ -383,7 +386,8 @@ def prove_batch(channel, input_layer_by_instance: List[Layer]
         for claims in claims_to_verify:
             if claims is not None:
                 channel.mix_felts(claims)
-        eq_evals = EqEvals.generate(ood_point, device)
+        with span("gkr_eq_evals"):
+            eq_evals = EqEvals.generate(ood_point, device)
         sumcheck_alpha = channel.draw_felt()
         instance_lambda = channel.draw_felt()
 
@@ -423,10 +427,13 @@ def prove_batch(channel, input_layer_by_instance: List[Layer]
 
 
 def _gen_layers(input_layer: Layer) -> List[Layer]:
-    """All circuit layers, input first: one halving step per layer."""
+    """All circuit layers, input first: one halving step per layer.  The
+    counter `gkr_layer_points` adds the points of each layer made (2^n - 1
+    for an input of 2^n points)."""
     layers = [input_layer]
     while not layers[-1].is_output_layer():
         layers.append(layers[-1].next_layer())
+        count("gkr_layer_points", 1 << layers[-1].n_variables())
     return layers
 
 

@@ -5,6 +5,7 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 from ..fields import M31, QM31
+from ..tracing import count
 from .utils import (UnivariatePoly, random_linear_combination_polys)
 
 MAX_DEGREE = 3
@@ -32,7 +33,8 @@ def prove_batch(claims: List[QM31], polys: List, lambda_: QM31, channel
                 ) -> Tuple[SumcheckProof, List[QM31], List, List[QM31]]:
     """Sum-check over h = sum_i lambda^i g_i (reference sumcheck.ts:99-172).
 
-    Returns (proof, assignment, constant oracles, claimed evals).
+    Returns (proof, assignment, constant oracles, claimed evals).  The
+    counter `sumcheck_rounds` adds one a round.
     """
     if not polys:
         raise ValueError("no multivariate polynomials provided")
@@ -76,6 +78,7 @@ def prove_batch(claims: List[QM31], polys: List, lambda_: QM31, channel
                  else p.fix_first_variable(challenge) for p in polys]
         round_polys.append(round_poly)
         assignment.append(challenge)
+        count("sumcheck_rounds", 1)
 
     return SumcheckProof(round_polys), assignment, polys, claims
 
