@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tstwo_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--only constraint_eval|poseidon2|quotients]
+    python3 chip_smoke.py [--only constraint_eval|poseidon2|quotients|gkr]
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc and times each against
 its plain PyTorch version on the card at the shapes its path gives it (the
@@ -48,9 +48,12 @@ runs the card, the build and that phase alone:
   * LogUp: the golden 2^8 proof against the committed JAX proof, 2^12 CUDA
     proofs against CPU ones for both `pairs` modes, then proves and
     verifies 2^16 and 2^20;
-  * GKR: 2^12 batch proofs of each layer kind against CPU ones, then a
+  * GKR (`--only gkr`): the round-sum and MLE-fold kernels against their
+    plain versions at the GKR cell's rounds, timed beside their byte
+    bound; 2^12 batch proofs of each layer kind against CPU ones, then a
     GrandProduct + LogUpGeneric batch at 2^20, verified, with its claims
-    checked against the input MLEs;
+    checked against the input MLEs, and a prove under the span tree that
+    takes the round-sum kernel twice a round;
   * the Poseidon252 flavour of the basic AIR (`prove_basic_air(...,
     flavor="poseidon252")`): the golden 2^4 proof against the committed JAX
     proof, a 2^6 CUDA proof against the CPU one, then proves at 2^16 and
@@ -137,6 +140,10 @@ REPLACES = {
                        "_domain_kernel (jitted program)",
     "accumulate_quotients": "tstwo_tpu/pcs/quotients.py:149 "
                             "_accumulate_quotients_kernel (jitted program)",
+    "gkr_round_sums": "tstwo_tpu/lookups/gkr.py:311, 331, 363 "
+                      "_eval_*_sum_kernel (jitted programs)",
+    "mle_fold": "tstwo_tpu/lookups/mle.py:27 _fold_first_variable "
+                "(jitted program)",
 }
 # One H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device memory; 67
 # TFLOP/s of float32 outside the tensor cores = 132 SMs x 128 lanes x 2 (a
@@ -404,6 +411,9 @@ MAIN_PATH_KERNELS = ("cfft_forward", "cfft_inverse", "blake2s",
                      "blake2s_transcript", "constraint_eval",
                      "accumulate_quotients")
 SECURE_POW_BITS, SECURE_QUERIES = 26, 70  # stwo-cairo's secure_pcs_config
+# what a GKR batch prove launches besides the deinterleave of its layers:
+# a round's sums and its MLE folds
+GKR_KERNELS = ("gkr_round_sums", "mle_fold")
 
 
 def launch_counts(path: str, required, forbidden=()) -> dict:
@@ -811,17 +821,19 @@ def defaults_phase(run) -> None:
         lambda: prove_batch(Blake2sChannel(), [layer]))
     gkr_twin, _ = prove_batch(Blake2sChannel(), [Layer(
         GRAND_PRODUCT, data=Mle(to_torch_u32(values, "cuda")))])
-    if flat_gkr_proof(gkr) != flat_gkr_proof(gkr_twin):
+    flat = kernel_cases().flat_gkr_proof
+    if flat(gkr) != flat(gkr_twin):
         fail("defaults: the GKR proof with no device differs from "
              "device=\"cuda\"")
-    if gkr_launches["deinterleave"] <= 0:
-        fail("defaults: the GKR batch launched no deinterleave")
+    gkr_counts = {k: gkr_launches[k] for k in GKR_KERNELS}
+    if min(gkr_counts.values()) <= 0:
+        fail(f"defaults: the GKR batch left a kernel out: {gkr_counts}")
     phase("defaults logup gkr", time.perf_counter() - t0,
           "LogUp 2^12 from LogupTraceGenerator(12), Seq(12).gen_column() "
           "with no device == prove_logup_lookup(12, device=\"cuda\"), "
           f"verified, launches {json.dumps(logup_counts, sort_keys=True)}; "
           "GKR GrandProduct 2^12 from Mle(numpy) == Mle(to_torch_u32(.., "
-          f"\"cuda\")), deinterleave launches {gkr_launches['deinterleave']}")
+          f"\"cuda\")), launches {json.dumps(gkr_counts, sort_keys=True)}")
 
 
 def grind_rates(run) -> None:
@@ -1301,82 +1313,41 @@ def logup_phases(run) -> None:
     launch_counts("logup", MAIN_PATH_KERNELS, forbidden=("blake2s_grind",))
 
 
-GKR_KINDS = ("GrandProduct", "LogUpGeneric", "LogUpMultiplicities",
-             "LogUpSingles")
-
-
-def gkr_layer(kind: str, n_vars: int, seed: int, device):
-    """A GKR input layer of `kind` over 2^n_vars points, from numpy (the
-    same values on every device)."""
-    import numpy as np
-
-    from tstwo_tpu_torch.lookups.gkr import Layer
-    from tstwo_tpu_torch.lookups.mle import BaseMle, Mle
-    from tstwo_tpu_torch.utils import to_torch_u32
-
-    rng = np.random.default_rng(seed)
-    n = 1 << n_vars
-    num = to_torch_u32(rng.integers(0, P, size=(4, n), dtype=np.uint32),
-                       device)
-    den = to_torch_u32(rng.integers(1, P, size=(4, n), dtype=np.uint32),
-                       device)
-    if kind == "GrandProduct":
-        return Layer(kind, data=Mle(num))
-    if kind == "LogUpGeneric":
-        return Layer(kind, numerators=Mle(num), denominators=Mle(den))
-    if kind == "LogUpMultiplicities":
-        base = to_torch_u32(rng.integers(0, P, size=n, dtype=np.uint32),
-                            device)
-        return Layer(kind, numerators=BaseMle(base), denominators=Mle(den))
-    return Layer(kind, denominators=Mle(den))
-
-
-def flat_gkr_proof(proof) -> list:
-    """A GkrBatchProof as a flat list of ints."""
-    out = []
-    for sc in proof.sumcheck_proofs:
-        for rp in sc.round_polys:
-            out.append(len(rp.coeffs))
-            for c in rp.coeffs:
-                out.extend(c.to_ints())
-    for masks in proof.layer_masks_by_instance:
-        out.append(len(masks))
-        for mask in masks:
-            for a, b in mask.columns_:
-                out.extend(a.to_ints() + b.to_ints())
-    for claims in proof.output_claims_by_instance:
-        for c in claims:
-            out.extend(c.to_ints())
-    return out
-
-
 def gkr_phases(run) -> None:
-    """Phases 13-14: GKR batch proofs.  2^12 CUDA == CPU for each layer
-    kind, then a GrandProduct + LogUpGeneric batch at 2^20: two proves,
-    the batch verifier, and its claims against the input MLEs."""
+    """Phases 13-14 (`--only gkr`): the GKR kernels (csrc/gkr.cu) at the
+    GKR cell's rounds (tests/torch_cuda_cases.py's GKR_ROWS) against
+    their plain versions bit for bit (`check`), timed beside the bound of
+    their bytes; 2^12 CUDA == CPU batch proofs for each layer kind; then a
+    GrandProduct + LogUpGeneric batch at 2^20: two proves, the batch
+    verifier, its claims against the input MLEs, and a third prove under
+    the span tree, which must take the round-sum kernel in every oracle
+    round (`gkr_round_sums_on_card` twice `sumcheck_rounds`, 380)."""
     import torch
 
-    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch import kernels, tracing
     from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
     from tstwo_tpu_torch.lookups.gkr import (GATE_GRAND_PRODUCT, GATE_LOGUP,
                                              partially_verify_batch,
                                              prove_batch)
 
-    device = run.device
+    cases, device = kernel_cases(), run.device
+    for row in cases.GKR_ROWS:
+        check(run.rows, row, row.build(device))
     t0 = time.perf_counter()
-    for i, kind in enumerate(GKR_KINDS):
+    for i, kind in enumerate(cases.GKR_COLUMNS):
         cuda_proof, _ = prove_batch(Blake2sChannel(),
-                                    [gkr_layer(kind, 12, i, device)])
+                                    [cases.gkr_layer(kind, 12, i, device)])
         cpu_proof, _ = prove_batch(Blake2sChannel(),
-                                   [gkr_layer(kind, 12, i, "cpu")])
-        if flat_gkr_proof(cuda_proof) != flat_gkr_proof(cpu_proof):
+                                   [cases.gkr_layer(kind, 12, i, "cpu")])
+        if cases.flat_gkr_proof(cuda_proof) != \
+                cases.flat_gkr_proof(cpu_proof):
             fail(f"GKR {kind} 2^12 CUDA proof differs from the CPU proof")
     phase("gkr mid_size", time.perf_counter() - t0,
           "2^12 CUDA proofs == CPU plain proofs for all four layer kinds")
 
     log_n = 20
-    layers = [gkr_layer("GrandProduct", log_n, 10, device),
-              gkr_layer("LogUpGeneric", log_n, 11, device)]
+    layers = [cases.gkr_layer("GrandProduct", log_n, 10, device),
+              cases.gkr_layer("LogUpGeneric", log_n, 11, device)]
     kernels.reset_launches()
     walls = []
     for _ in range(2):
@@ -1385,6 +1356,9 @@ def gkr_phases(run) -> None:
             lambda: prove_batch(Blake2sChannel(), layers))
         walls.append(wall)
     peak = torch.cuda.max_memory_allocated(device)
+    launches = launch_counts("gkr", ("deinterleave",) + GKR_KERNELS)
+    # a proof's launches, of the two counted
+    run.counts.update({name: launches[name] // 2 for name in GKR_KERNELS})
     art, verify_s = timed(lambda: partially_verify_batch(
         [GATE_GRAND_PRODUCT, GATE_LOGUP], proof, Blake2sChannel()))
     if art.ood_point != artifact.ood_point or \
@@ -1393,8 +1367,8 @@ def gkr_phases(run) -> None:
         fail("GKR 2^20 verifier artifact differs from the prover's")
     # the input MLEs at the OOD point, on the card and, as a witness apart
     # from the CUDA path, on CPU copies made from the same numpy values
-    cpu_layers = [gkr_layer("GrandProduct", log_n, 10, "cpu"),
-                  gkr_layer("LogUpGeneric", log_n, 11, "cpu")]
+    cpu_layers = [cases.gkr_layer("GrandProduct", log_n, 10, "cpu"),
+                  cases.gkr_layer("LogUpGeneric", log_n, 11, "cpu")]
     for where, (gp, lg) in (("card", layers), ("CPU", cpu_layers)):
         if art.claims_to_verify_by_instance != [
                 [gp.data.eval_at_point(art.ood_point)],
@@ -1402,12 +1376,28 @@ def gkr_phases(run) -> None:
                  lg.denominators.eval_at_point(art.ood_point)]]:
             fail(f"GKR 2^20 claims differ from the input MLEs ({where}) at "
                  "the OOD point")
+    tracing.reset()
+    tracing.enable(sync=False)
+    try:
+        with tracing.request(0):
+            traced = prove_batch(Blake2sChannel(), layers)[0]
+        counts = tracing.counts()[0]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    if cases.flat_gkr_proof(traced) != cases.flat_gkr_proof(proof):
+        fail("GKR 2^20 proof under the span tree differs")
+    rounds = counts.get("sumcheck_rounds")
+    on_card = counts.get("gkr_round_sums_on_card")
+    if rounds != log_n * (log_n - 1) // 2 or on_card != 2 * rounds:
+        fail(f"GKR 2^20: {on_card} round sums on the card in {rounds} "
+             "rounds, not two a round")
     phase(f"gkr prove 2^{log_n}", walls[1],
           f"GrandProduct + LogUpGeneric batch: two proves {walls[0]:.3f} s, "
           f"{walls[1]:.3f} s; verified in {verify_s:.3f} s; claims == input "
           "MLEs at the OOD point on the card and on the CPU; peak device "
-          f"memory {peak / 2**30:.3f} GiB")
-    launch_counts("gkr", ("deinterleave",))
+          f"memory {peak / 2**30:.3f} GiB; gkr_round_sums_on_card {on_card} "
+          f"in {rounds} sumcheck_rounds")
 
 
 def poseidon_proof_fields(proof) -> dict:
@@ -1709,7 +1699,7 @@ PHASES = ((None, kernel_phase), (None, m31_phase),
           (None, grind_rates), (None, secure_prove),
           ("constraint_eval", constraint_eval_phase),
           ("poseidon2", poseidon2_phase), ("quotients", quotients_phase),
-          (None, logup_phases), (None, gkr_phases), (None, poseidon_phases),
+          (None, logup_phases), ("gkr", gkr_phases), (None, poseidon_phases),
           (None, poseidon_sponge), (None, mesh_phase))
 
 

@@ -15,6 +15,7 @@ import torch
 import torch_cuda_cases as cases
 
 from tstwo_tpu_torch import kernels
+from tstwo_tpu_torch.lookups import gkr_kernels
 from tstwo_tpu_torch.ops import (blake2s, constraint_eval, fft, fri_ops,
                                  m31_kernels)
 from tstwo_tpu_torch.ops import poseidon252 as pos
@@ -347,6 +348,10 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
 
     q = cases.quotient_case(2, 6, 1, device, seed=7)
     quotients.quotient_rows(q.domain, list(q.cols), q.alpha, q.batches)
+    g = cases.gkr_round_sums_case("LogUpGeneric", 4, device, seed=8)
+    gkr_kernels.round_sums(g.kind, g.eq_arr, g.cols, g.lam)
+    gkr_kernels.fold(g.cols[0], g.lam)
+    gkr_kernels.fold(x[0], g.lam)  # base-field values
     assert kernels.LAUNCHES == {"cfft_forward": 1, "cfft_inverse": 1,
                                 "blake2s": 2, "merkle_layer": 1,
                                 "merkle_tail": 1, "blake2s_grind": 1,
@@ -355,7 +360,8 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
                                 "hades_permutation": 2,
                                 "poseidon_merkle_layer": 2,
                                 "constraint_eval": 1,
-                                "accumulate_quotients": 1}
+                                "accumulate_quotients": 1,
+                                "gkr_round_sums": 1, "mle_fold": 2}
 
 
 @pytest.mark.parametrize("pow_bits", [0, 1, 8, 10, 12, 14, 16, 60])
@@ -759,3 +765,145 @@ def test_quotients_wrapper_refuses_what_the_kernel_does_not_take(device):
     many = batches * 65
     with pytest.raises(ValueError, match="sample batches"):
         call(list(cols), bs=many)
+
+
+# -- GKR sum-check rounds (csrc/gkr.cu) ----------------------------------------
+
+GKR_KINDS = list(cases.GKR_COLUMNS)
+
+
+@pytest.mark.parametrize("longer_eq", [False, True])
+@pytest.mark.parametrize("n_terms", [1, 2, 1 << 10, 1 << 18])
+@pytest.mark.parametrize("kind", GKR_KINDS)
+def test_gkr_round_sums_kernel_matches_plain(device, kind, n_terms,
+                                             longer_eq):
+    """Every layer kind at 1, 2, 2^10 and 2^18 terms (one block to the
+    whole grid), over an eq table of n_terms entries or over the prefix
+    of one four times as long (a view whose rows lie 4 n_terms apart)."""
+    case = cases.gkr_round_sums_case(kind, n_terms, device,
+                                     eq_len=4 * n_terms if longer_eq else None,
+                                     seed=n_terms + GKR_KINDS.index(kind))
+    _exact(case.kernel(), case.plain())
+
+
+@pytest.mark.parametrize("kind", GKR_KINDS)
+def test_gkr_round_sums_kernel_at_the_largest_values(device, kind):
+    """Every value P - 1, lambda too: the largest products and sums."""
+    from tstwo_tpu_torch.fields import QM31
+
+    lam = QM31.from_ints([cases.P - 1] * 4)
+    case = cases.gkr_round_sums_case(kind, 1 << 12, device, lam=lam)
+    for t in (case.eq_arr, *case.cols):
+        t.fill_(cases.P - 1)
+    _exact(case.kernel(), case.plain())
+
+
+def test_gkr_round_sums_kernel_reads_layers_where_they_lie(device):
+    """Layer columns that are row slices of a wider buffer (read in
+    place) and columns whose points lie two words apart (copied)."""
+    n = 1 << 9
+    case = cases.gkr_round_sums_case("LogUpGeneric", n, device, seed=3)
+    want = case.plain()
+    wide = torch.zeros((4, 8 * n + 5), dtype=torch.int32, device=device)
+    wide[:, 3:4 * n + 3] = case.cols[0]
+    spread = torch.stack([case.cols[1], case.cols[1]], dim=-1)[..., 0]
+    assert not spread.is_contiguous()
+    cols = (wide[:, 3:4 * n + 3], spread)
+    _exact(gkr_kernels.round_sums_cuda(case.kind, case.eq_arr, cols,
+                                       case.lam), want)
+
+
+def test_gkr_round_sums_kernel_leaves_its_counter_at_zero(device):
+    """Launches of every grid size in turn, each exact: the last block
+    of each resets the counter of finished blocks for the next (a count
+    left over would make no block of the next launch the last, and its
+    result never written)."""
+    for n_terms in (1 << 18, 1, 1 << 12, 3 << 10, 1 << 18, 7):
+        case = cases.gkr_round_sums_case("GrandProduct", n_terms, device,
+                                         seed=n_terms)
+        _exact(case.kernel(), case.plain())
+
+
+@pytest.mark.parametrize("base", [False, True])
+@pytest.mark.parametrize("n", [2, 4, 1 << 11, 1 << 19])
+def test_mle_fold_kernel_matches_plain(device, n, base):
+    case = cases.mle_fold_case(n, device, base=base, seed=n + base)
+    before = case.arr.clone()
+    _exact(case.kernel(), case.plain())
+    _exact(case.arr, before)
+
+
+def test_mle_fold_kernel_at_the_largest_values_and_views(device):
+    """Every value and the challenge P - 1; a [4, n] view of a wider
+    buffer, read in place."""
+    from tstwo_tpu_torch.fields import QM31
+
+    c = QM31.from_ints([cases.P - 1] * 4)
+    case = cases.mle_fold_case(1 << 10, device, c=c)
+    case.arr.fill_(cases.P - 1)
+    _exact(case.kernel(), case.plain())
+    wide = cases.rand(np.random.default_rng(4), (4, 3000), device)
+    view = wide[:, 7:7 + 2048]
+    _exact(gkr_kernels.fold_cuda(view, c),
+           gkr_kernels.fold_plain(view.cpu(), c))
+
+
+def test_gkr_wrappers_refuse_what_the_kernels_do_not_take(device):
+    case = cases.gkr_round_sums_case("LogUpGeneric", 8, device, seed=9)
+    eq_arr, (nums, dens), lam = case.eq_arr, case.cols, case.lam
+
+    def call(kind="LogUpGeneric", eq=eq_arr, cols=(nums, dens)):
+        gkr_kernels.round_sums_cuda(kind, eq, cols, lam)
+
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        call(kind="LogUpFancy")
+    with pytest.raises(ValueError, match="2 column"):
+        call(cols=(dens,))
+    with pytest.raises(ValueError, match="CUDA"):
+        call(cols=(nums.cpu(), dens))
+    with pytest.raises(ValueError, match="expected \\[4, 32\\]"):
+        call(cols=(nums[:, :16], dens))
+    with pytest.raises(ValueError, match="expected \\[32\\]"):
+        call(kind="LogUpMultiplicities", cols=(nums[0, :16], dens))
+    with pytest.raises(ValueError, match="n_terms >= 1"):
+        call(eq=eq_arr[:, :0])
+    with pytest.raises(ValueError, match="even number"):
+        gkr_kernels.fold_cuda(nums[:, :3], lam)
+    with pytest.raises(ValueError, match="even number"):
+        gkr_kernels.fold_cuda(nums[0, :1], lam)
+    with pytest.raises(ValueError, match="CUDA"):
+        gkr_kernels.fold_cuda(nums.cpu(), lam)
+
+
+@pytest.mark.parametrize("kinds", [["GrandProduct"], ["LogUpGeneric"],
+                                   ["LogUpMultiplicities"], ["LogUpSingles"],
+                                   ["GrandProduct", "LogUpGeneric"]])
+def test_gkr_prove_on_the_card_equals_the_cpu_prove(device, kinds):
+    """A batch of 2^7-point instances proved on the card and on the CPU:
+    the same proof; on the card one round-sum launch an oracle a round
+    (`gkr_round_sums_on_card`, two a round for two instances), and no
+    round on the CPU."""
+    from tstwo_tpu_torch import tracing
+    from tstwo_tpu_torch.channel.blake2s import Blake2sChannel
+    from tstwo_tpu_torch.lookups.gkr import prove_batch
+
+    proofs, counts = [], []
+    for where in (device, "cpu"):
+        layers = [cases.gkr_layer(kind, 7, i, where)
+                  for i, kind in enumerate(kinds)]
+        tracing.reset()
+        tracing.enable(sync=False)
+        try:
+            with tracing.request(0):
+                proofs.append(prove_batch(Blake2sChannel(), layers)[0])
+            counts.append(tracing.counts()[0])
+        finally:
+            tracing.disable()
+            tracing.reset()
+    assert cases.flat_gkr_proof(proofs[0]) == \
+        cases.flat_gkr_proof(proofs[1])
+    rounds = sum(range(7))
+    assert counts[0]["sumcheck_rounds"] == counts[1]["sumcheck_rounds"] \
+        == rounds
+    assert counts[0]["gkr_round_sums_on_card"] == len(kinds) * rounds
+    assert "gkr_round_sums_on_card" not in counts[1]

@@ -12,9 +12,10 @@ compares them too, times them, and sets their times beside the bound of
 `cost`.  A case may also have `launch()`, the kernel alone without the
 host's preparation of its call, which chip_smoke.py times as the kernel.
 
-`KERNEL_ROWS`, `PROGRAM_ROWS` and `QUOTIENT_ROWS` are the shapes the
-proves give the kernels: the rows of chip_smoke.py's kernel table (its
-phase 3; 8b-8c; 8d).  `tests/test_torch_cuda.py` holds every one.
+`KERNEL_ROWS`, `PROGRAM_ROWS`, `QUOTIENT_ROWS` and `GKR_ROWS` are the
+shapes the proves give the kernels: the rows of chip_smoke.py's kernel
+table (its phase 3; 8b-8c; 8d; the GKR phase).  `tests/test_torch_cuda.py`
+holds every one.
 
 Imports numpy, torch and tstwo_tpu_torch only: the GPU machine has no JAX.
 """
@@ -27,6 +28,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tstwo_tpu_torch.lookups import gkr_kernels
 from tstwo_tpu_torch.ops import blake2s, fft, fri_ops, m31_kernels, qm31
 from tstwo_tpu_torch.ops import constraint_eval as ce
 from tstwo_tpu_torch.ops import poseidon252 as pos
@@ -601,6 +603,111 @@ def quotient_case(k, log, n_batches, device, every=3, shuffle=False,
                                        0))
 
 
+def _edged(rng, shape, device) -> torch.Tensor:
+    """Random canonical values with M31_EDGE (0, P - 1, ...) as the first
+    points, rolled by one a row (so that no point is zero in every row)."""
+    x = rand(rng, shape, device)
+    m = min(shape[-1], len(M31_EDGE))
+    rows = x.view(-1, shape[-1])
+    for k in range(rows.shape[0]):
+        rows[k, :m] = to_torch_u32(np.roll(M31_EDGE, k)[:m], device)
+    return x
+
+
+def _qm31(rng):
+    from tstwo_tpu_torch.fields import QM31
+
+    return QM31.from_ints([int(v) for v in rng.integers(0, P, 4)])
+
+
+# the layer columns a round reads, [4, 4 n] each but LogUpMultiplicities'
+# base numerators [4 n]: (columns, bytes a term)
+GKR_COLUMNS = {gkr_kernels.GRAND_PRODUCT: ((4,), 64),
+               gkr_kernels.LOGUP_GENERIC: ((4, 4), 128),
+               gkr_kernels.LOGUP_MULTIPLICITIES: ((1, 4), 80),
+               gkr_kernels.LOGUP_SINGLES: ((4,), 64)}
+
+
+def gkr_round_sums_case(kind, n_terms, device, eq_len=None, lam=None,
+                        seed=0) -> Case:
+    """The two round sums of an oracle of `kind` over n_terms terms: the
+    first n_terms of a random eq table of eq_len entries (a view, as a
+    round reads its table's prefix), random layer columns whose first
+    points are M31_EDGE, lambda random unless given.  Its cost: the eq
+    prefix and the layer read once, the 8 words written."""
+    rng = np.random.default_rng(seed)
+    eq_len = eq_len or n_terms
+    eq_arr = _edged(rng, (4, eq_len), device)[:, :n_terms]
+    rows, per_term = GKR_COLUMNS[kind]
+    cols = tuple(_edged(rng, (r, 4 * n_terms) if r == 4 else (4 * n_terms,),
+                        device) for r in rows)
+    lam = lam or _qm31(rng)
+    return Case(kind=kind, eq_arr=eq_arr, cols=cols, lam=lam,
+                n_terms=n_terms,
+                kernel=lambda: gkr_kernels.round_sums_cuda(kind, eq_arr, cols,
+                                                           lam),
+                plain=lambda: gkr_kernels.round_sums_plain(kind, eq_arr, cols,
+                                                           lam),
+                cost=lambda want: Cost("gkr.cu", (16 + per_term) * n_terms
+                                       + 32, 0))
+
+
+def mle_fold_case(n, device, base=False, c=None, seed=0) -> Case:
+    """An MLE of n points folded by its first variable at c (random
+    unless given): [4, n] random QM31 values, or [n] base values (`base`),
+    M31_EDGE first.  Its cost: the MLE read once, [4, n / 2] written."""
+    rng = np.random.default_rng(seed)
+    arr = _edged(rng, (n,) if base else (4, n), device)
+    c = c or _qm31(rng)
+    return Case(arr=arr, c=c, n=n, base=base,
+                kernel=lambda: gkr_kernels.fold_cuda(arr, c),
+                plain=lambda: gkr_kernels.fold_plain(arr, c),
+                cost=lambda want: Cost("gkr.cu", (4 if base else 16) * n
+                                       + 8 * n, 0))
+
+
+def gkr_layer(kind: str, n_vars: int, seed: int, device):
+    """A GKR input layer of `kind` over 2^n_vars points, from numpy (the
+    same values on every device)."""
+    from tstwo_tpu_torch.lookups.gkr import Layer
+    from tstwo_tpu_torch.lookups.mle import BaseMle, Mle
+
+    rng = np.random.default_rng(seed)
+    n = 1 << n_vars
+    num = to_torch_u32(rng.integers(0, P, size=(4, n), dtype=np.uint32),
+                       device)
+    den = to_torch_u32(rng.integers(1, P, size=(4, n), dtype=np.uint32),
+                       device)
+    if kind == gkr_kernels.GRAND_PRODUCT:
+        return Layer(kind, data=Mle(num))
+    if kind == gkr_kernels.LOGUP_GENERIC:
+        return Layer(kind, numerators=Mle(num), denominators=Mle(den))
+    if kind == gkr_kernels.LOGUP_MULTIPLICITIES:
+        base = to_torch_u32(rng.integers(0, P, size=n, dtype=np.uint32),
+                            device)
+        return Layer(kind, numerators=BaseMle(base), denominators=Mle(den))
+    return Layer(kind, denominators=Mle(den))
+
+
+def flat_gkr_proof(proof) -> list:
+    """A GkrBatchProof as a flat list of ints."""
+    out = []
+    for sc in proof.sumcheck_proofs:
+        for rp in sc.round_polys:
+            out.append(len(rp.coeffs))
+            for c in rp.coeffs:
+                out.extend(c.to_ints())
+    for masks in proof.layer_masks_by_instance:
+        out.append(len(masks))
+        for mask in masks:
+            for a, b in mask.columns_:
+                out.extend(a.to_ints() + b.to_ints())
+    for claims in proof.output_claims_by_instance:
+        for c in claims:
+            out.extend(c.to_ints())
+    return out
+
+
 # -- the rows of chip_smoke.py's kernel table ---------------------------------
 
 class Row(NamedTuple):
@@ -762,4 +869,23 @@ QUOTIENT_ROWS = tuple(
     for k, log, n, every in [(100, 21, 1, 3), (4, 22, 1, 3),
                              (1296, 18, 2, 324), (4, 20, 1, 3)])
 
-ROWS = KERNEL_ROWS + PROGRAM_ROWS + QUOTIENT_ROWS
+# the GKR cell's rounds (gkr_b2s.2e20: a GrandProduct and a LogUpGeneric
+# instance of 2^20 points): each layer kind's first round at 2^18 terms
+# (a 2^20-point layer, its eq table as long), LogUpGeneric at 2^10 terms
+# and at 1 (the last round: a launch); the first folds of a 2^20-point
+# layer ([4, 2^20], and [2^20] base numerators), one at 2^11 and one of 2
+# points
+GKR_ROWS = (
+    *(Row("gkr_round_sums", f"{kind} 2^18 terms",
+          partial(gkr_round_sums_case, kind, 1 << 18))
+      for kind in GKR_COLUMNS),
+    *(Row("gkr_round_sums", f"LogUpGeneric {_pow2(n)} term(s) of a 2^19 eq",
+          partial(gkr_round_sums_case, gkr_kernels.LOGUP_GENERIC, n,
+                  eq_len=1 << 19)) for n in (1 << 10, 1)),
+    *(Row("mle_fold", ("[2^20] base" if base else f"[4,{_pow2(n)}]"),
+          partial(mle_fold_case, n, base=base))
+      for n, base in [(1 << 20, False), (1 << 20, True), (1 << 11, False),
+                      (2, False)]),
+)
+
+ROWS = KERNEL_ROWS + PROGRAM_ROWS + QUOTIENT_ROWS + GKR_ROWS

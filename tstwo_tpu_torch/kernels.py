@@ -18,8 +18,9 @@ permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
 as `poseidon_merkle_layer`), ops/constraint_eval.py (a component's
 constraint program over its evaluation domain as `constraint_eval`) and
 pcs/quotients.py (the DEEP quotients of a group of columns of one size as
-`accumulate_quotients`) add one per call of the C entry point, and
-nowhere else.
+`accumulate_quotients`) and lookups/gkr_kernels.py (a GKR oracle's two
+round sums as `gkr_round_sums`, an MLE's fold as `mle_fold`) add one per
+call of the C entry point, and nowhere else.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("cfft.cu", "cfft_forward.cu", "blake2s.cu", "deinterleave.cu",
            "m31_kernels.cu", "poseidon252.cu", "constraint_eval.cu",
-           "quotients.cu")
+           "quotients.cu", "gkr.cu")
 HEADERS = ("m31.cuh", "cfft_pass.cuh", "segments.cuh", "felt252.cuh",
            "blake2s.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tstwo_tpu_torch"
@@ -87,6 +88,15 @@ _SIGNATURES = {
                                    ctypes.c_int, _VP, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_longlong, _VP,
                                    _VP),
+    # kind, eq, eq_stride, a, a_stride, b, b_stride, n_terms, lambda (4
+    # words), out, stream
+    "tstwo_gkr_round_sums": (ctypes.c_int, _VP, ctypes.c_longlong, _VP,
+                             ctypes.c_longlong, _VP, ctypes.c_longlong,
+                             ctypes.c_longlong, *(ctypes.c_uint,) * 4, _VP,
+                             _VP),
+    # src, stride, half, base, c (4 words), out, stream
+    "tstwo_mle_fold": (_VP, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_int, *(ctypes.c_uint,) * 4, _VP, _VP),
 }
 
 # entry points that launch nothing: (argument types, result type)
@@ -111,7 +121,7 @@ LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
             "blake2s_transcript": 0, "deinterleave": 0,
             "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
             "poseidon_merkle_layer": 0, "constraint_eval": 0,
-            "accumulate_quotients": 0}
+            "accumulate_quotients": 0, "gkr_round_sums": 0, "mle_fold": 0}
 
 _lib = None
 _entries: dict = {}  # entry name -> bound C function, filled by lib()

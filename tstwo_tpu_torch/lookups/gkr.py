@@ -4,8 +4,10 @@ Layer generation and the per-round sums run on the layers' device over
 the hypercube (QM31 SoA int32 [4, n], the ops/qm31 layout); the round
 structure (sumcheck, channel interaction) is host-driven.  Each layer step
 halves the layer through `ops/fri_ops._deinterleave`, which launches the
-deinterleave kernel for a CUDA tensor.  reference lookups/gkr_prover.ts +
-gkr_verifier.ts + backend/cpu/lookups/gkr.ts.
+deinterleave kernel for a CUDA tensor; a round's sums and folds are
+`gkr_kernels.round_sums` and `fold` (one kernel launch each on the card).
+reference lookups/gkr_prover.ts + gkr_verifier.ts +
+backend/cpu/lookups/gkr.ts.
 """
 from __future__ import annotations
 
@@ -19,16 +21,13 @@ from ..ops.fri_ops import _deinterleave
 from ..tracing import count, span
 from ..utils import entry_device
 from . import npqm31
+from .gkr_kernels import (GRAND_PRODUCT, LOGUP_GENERIC, LOGUP_MULTIPLICITIES,
+                          LOGUP_SINGLES, round_sums)
 from .mle import BaseMle, Mle
 from .sumcheck import (SumcheckProof, partially_verify as sumcheck_verify,
                        prove_batch as sumcheck_prove_batch)
 from .utils import (Fraction, UnivariatePoly, eq, fold_mle_evals,
                     random_linear_combination)
-
-GRAND_PRODUCT = "GrandProduct"
-LOGUP_GENERIC = "LogUpGeneric"
-LOGUP_MULTIPLICITIES = "LogUpMultiplicities"
-LOGUP_SINGLES = "LogUpSingles"
 
 
 class GkrError(Exception):
@@ -92,11 +91,20 @@ class Layer:
         if self.kind == LOGUP_SINGLES:
             return Layer(LOGUP_SINGLES,
                          denominators=self.denominators.fix_first_variable(x0))
-        nums = (self.numerators.to_secure()
-                if isinstance(self.numerators, BaseMle) else self.numerators)
         return Layer(LOGUP_GENERIC,
-                     numerators=nums.fix_first_variable(x0),
+                     numerators=self.numerators.fix_first_variable(x0),
                      denominators=self.denominators.fix_first_variable(x0))
+
+    def round_columns(self) -> Tuple[str, tuple]:
+        """The kind of gate the round sums evaluate and the columns they
+        read: base-field numerators (a BaseMle) are LogUpMultiplicities'."""
+        if self.kind == GRAND_PRODUCT:
+            return GRAND_PRODUCT, (self.data.evals,)
+        if self.kind == LOGUP_SINGLES:
+            return LOGUP_SINGLES, (self.denominators.evals,)
+        kind = (LOGUP_MULTIPLICITIES if isinstance(self.numerators, BaseMle)
+                else LOGUP_GENERIC)
+        return kind, (self.numerators.evals, self.denominators.evals)
 
     def into_multivariate_poly(self, lambda_: QM31,
                                eq_evals: "EqEvals") -> "GkrMultivariatePolyOracle":
@@ -201,21 +209,9 @@ class GkrMultivariatePolyOracle:
             raise GkrError("number of variables must not be zero")
         n_terms = 1 << (n_variables - 1)
         y = self.eq_evals.y
-        lam = self.lambda_
-        layer = self.input_layer
         eq_arr = self.eq_evals.evals.evals[:, :n_terms]
-
-        if layer.kind == GRAND_PRODUCT:
-            e0, e2 = _eval_grand_product_sum(eq_arr, layer.data.evals)
-        elif layer.kind in (LOGUP_GENERIC, LOGUP_MULTIPLICITIES):
-            nums = (layer.numerators.to_secure().evals
-                    if isinstance(layer.numerators, BaseMle)
-                    else layer.numerators.evals)
-            e0, e2 = _eval_logup_sum(eq_arr, nums, layer.denominators.evals,
-                                     lam)
-        else:
-            e0, e2 = _eval_logup_singles_sum(eq_arr, layer.denominators.evals,
-                                             lam)
+        kind, cols = self.input_layer.round_columns()
+        e0, e2 = round_sums(kind, eq_arr, cols, self.lambda_)
         e0 = e0 * self.eq_fixed_var_correction
         e2 = e2 * self.eq_fixed_var_correction
         return correct_sum_as_poly_in_first_variable(e0, e2, claim, y,
@@ -246,67 +242,6 @@ class GkrMultivariatePolyOracle:
             cols = [(layer.numerators.at(0), layer.numerators.at(1)),
                     (layer.denominators.at(0), layer.denominators.at(1))]
         return GkrMask(cols)
-
-
-# ---------------------------------------------------------------------------
-# Round sums over the hypercube (reference backend/cpu/lookups/gkr.ts:185-220).
-# eq_arr is [4, n_terms]; the layer is [4, 4 * n_terms]: rows r0 = first
-# half, r1 = second half, each split into even/odd pairs (i0, i1); the
-# polynomial's value at 2 is r2 = 2 * r1 - r0.  Each sum reduces in int64
-# with one `% P` (npqm31.sum_all_arr); the two sums come to the host in one
-# transfer, the protocol's one sync per sumcheck round.
-# ---------------------------------------------------------------------------
-
-def _split(arr: torch.Tensor, n_terms: int):
-    """(r0i0, r0i1, r1i0, r1i1) of a [4, 4 * n_terms] layer."""
-    return (arr[:, 0: 2 * n_terms: 2], arr[:, 1: 2 * n_terms: 2],
-            arr[:, 2 * n_terms:: 2], arr[:, 2 * n_terms + 1:: 2])
-
-
-def _at_two(r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:
-    return npqm31.sub(npqm31.double(r1), r0)
-
-
-def _two_sums(eq_arr: torch.Tensor, t0: torch.Tensor,
-              t2: torch.Tensor) -> Tuple[QM31, QM31]:
-    sums = torch.stack([npqm31.sum_all_arr(npqm31.mul(eq_arr, t0)),
-                        npqm31.sum_all_arr(npqm31.mul(eq_arr, t2))]).tolist()
-    return QM31.from_ints(sums[0]), QM31.from_ints(sums[1])
-
-
-def _eval_grand_product_sum(eq_arr, inp) -> Tuple[QM31, QM31]:
-    r0i0, r0i1, r1i0, r1i1 = _split(inp, eq_arr.shape[1])
-    return _two_sums(eq_arr, npqm31.mul(r0i0, r0i1),
-                     npqm31.mul(_at_two(r0i0, r1i0), _at_two(r0i1, r1i1)))
-
-
-def _eval_logup_sum(eq_arr, nums, dens, lam: QM31) -> Tuple[QM31, QM31]:
-    n_terms = eq_arr.shape[1]
-    n0, n1, n0b, n1b = _split(nums, n_terms)
-    d0, d1, d0b, d1b = _split(dens, n_terms)
-    lam_arr = npqm31.scalar(lam, 1, eq_arr.device)
-
-    def frac_acc(na, da, nb, db):
-        numer = npqm31.add(npqm31.mul(na, db), npqm31.mul(nb, da))
-        denom = npqm31.mul(da, db)
-        return npqm31.add(numer, npqm31.mul(lam_arr, denom))
-
-    return _two_sums(eq_arr, frac_acc(n0, d0, n1, d1),
-                     frac_acc(_at_two(n0, n0b), _at_two(d0, d0b),
-                              _at_two(n1, n1b), _at_two(d1, d1b)))
-
-
-def _eval_logup_singles_sum(eq_arr, dens, lam: QM31) -> Tuple[QM31, QM31]:
-    d0, d1, d0b, d1b = _split(dens, eq_arr.shape[1])
-    lam_arr = npqm31.scalar(lam, 1, eq_arr.device)
-
-    def recip_acc(da, db):
-        numer = npqm31.add(da, db)
-        denom = npqm31.mul(da, db)
-        return npqm31.add(numer, npqm31.mul(lam_arr, denom))
-
-    return _two_sums(eq_arr, recip_acc(d0, d1),
-                     recip_acc(_at_two(d0, d0b), _at_two(d1, d1b)))
 
 
 def correct_sum_as_poly_in_first_variable(f_at_0: QM31, f_at_2: QM31,

@@ -3,7 +3,9 @@
 A secure-field MLE holds an int32 [4, n] QM31 tensor; a base-field MLE an
 int32 [n] tensor.  Tensors stay on the device they were given unless a
 `device` is named; numpy arrays and host values go to `device`, CUDA
-device 0 unless named (`utils.entry_device`).  reference lookups/mle.ts.
+device 0 unless named (`utils.entry_device`).  Fixing a variable folds
+through `gkr_kernels.fold`, one `mle_fold` launch for a CUDA tensor.
+reference lookups/mle.ts.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from ..fields import M31, QM31
 from ..utils import entry_device, to_torch_u32
 from . import npqm31
+from .gkr_kernels import fold
 from .utils import UnivariatePoly
 
 Evals = Union[torch.Tensor, np.ndarray]
@@ -27,13 +30,6 @@ def _as_int32(arr: Evals, device=None) -> torch.Tensor:
         return arr if device is None else arr.to(device)
     return to_torch_u32(np.asarray(arr).astype(np.uint32),
                         entry_device(device))
-
-
-def _fold_first_variable(arr: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
-    """lhs + p * (rhs - lhs) over the hypercube halves."""
-    mid = arr.shape[1] // 2
-    lhs, rhs = arr[:, :mid], arr[:, mid:]
-    return npqm31.add(npqm31.mul(pv, npqm31.sub(rhs, lhs)), lhs)
 
 
 class Mle:
@@ -73,13 +69,11 @@ class Mle:
                 f"{self.n_variables()} variables")
         arr = self.evals
         for p in point:
-            arr = _fold_first_variable(
-                arr, npqm31.scalar(p, device=arr.device))
+            arr = fold(arr, p)
         return QM31.from_ints(arr[:, 0].tolist())
 
     def fix_first_variable(self, assignment: QM31) -> "Mle":
-        return Mle(_fold_first_variable(
-            self.evals, npqm31.scalar(assignment, device=self.evals.device)))
+        return Mle(fold(self.evals, assignment))
 
 
 class BaseMle:
@@ -110,7 +104,7 @@ class BaseMle:
         return Mle(torch.stack([self.evals, z, z, z]))
 
     def fix_first_variable(self, assignment: QM31) -> Mle:
-        return self.to_secure().fix_first_variable(assignment)
+        return Mle(fold(self.evals, assignment))
 
 
 class SecureMle(Mle):
