@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of tstwo_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--only constraint_eval|poseidon2|quotients|gkr]
+    python3 chip_smoke.py [--only constraint_eval|poseidon2|quotients|gkr|
+                                  poseidon_grind]
 
 Builds the CUDA kernels from tstwo_tpu_torch/csrc and times each against
 its plain PyTorch version on the card at the shapes its path gives it (the
@@ -34,6 +35,10 @@ runs the card, the build and that phase alone:
     (stwo-cairo's secure_pcs_config: pow_bits 26, 70 queries), which must
     launch the grind kernel, its nonce held against the plain scan on the
     card;
+  * the Poseidon252 grind (phase 7b, `--only poseidon_grind`): its kernel
+    against its plain version, timed beside its bound, then the grind of a
+    Poseidon252 channel on the card against `grind_host` at pow_bits 12,
+    16 and 20, and at 26 on the card alone;
   * constraint programs (phase 8b, `--only constraint_eval`): LogUp at
     2^21 and wide Fibonacci at 2^21 x 100 (each rows-per-thread variant,
     the eager DomainEvaluator beside it), then a 96-bit wide Fibonacci
@@ -140,6 +145,9 @@ REPLACES = {
                        "_domain_kernel (jitted program)",
     "accumulate_quotients": "tstwo_tpu/pcs/quotients.py:149 "
                             "_accumulate_quotients_kernel (jitted program)",
+    # none: the JAX package grinds a Poseidon252 channel on the host
+    "poseidon_grind": "none (tstwo_tpu/proof_of_work.py:19 grind_host on "
+                      "the host)",
     "gkr_round_sums": "tstwo_tpu/lookups/gkr.py:311, 331, 363 "
                       "_eval_*_sum_kernel (jitted programs)",
     "mle_fold": "tstwo_tpu/lookups/mle.py:27 _fold_first_variable "
@@ -874,6 +882,86 @@ def grind_rates(run) -> None:
               flush=True)
     phase("grind", time.perf_counter() - t0,
           "grind on the card == grind_host at pow_bits 12, 16, 20")
+
+
+def poseidon_grind_phase(run) -> None:
+    """Phase 7b (`--only poseidon_grind`): the Poseidon252 grind kernel at
+    tests/torch_cuda_cases.py's POSEIDON_GRIND_ROWS against its plain
+    version (`check`), timed beside the bound of two permutations a nonce;
+    then `grind` of a Poseidon252 channel on the card against `grind_host`
+    from three channel states at pow_bits 12 and 16 and from one at 20, and
+    at 20 from another against the plain scan on the card (the same
+    nonce), one launch a batch of GRIND_BATCH_P252_CUDA; last
+    pow_bits 26 from each state on the card alone, its nonce's digest
+    checked on the host and, from the fresh state, every nonce below it
+    scanned by the plain version on the card without a hit."""
+    from tstwo_tpu_torch import kernels
+    from tstwo_tpu_torch.channel.poseidon import (FieldElement252,
+                                                  Poseidon252Channel)
+    from tstwo_tpu_torch.ops import poseidon252 as pos
+    from tstwo_tpu_torch.proof_of_work import (GRIND_BATCH_P252_CUDA, grind,
+                                               grind_host)
+
+    cases, device = kernel_cases(), run.device
+    for row in cases.POSEIDON_GRIND_ROWS:
+        check(run.rows, row, row.build(device))
+    t0 = time.perf_counter()
+    for pow_bits in (12, 16, 20, 26):
+        for label, digest in cases.poseidon_grind_digests():
+            if pow_bits == 20 and label == "fresh":
+                continue
+            ch = Poseidon252Channel(FieldElement252(digest))
+            grind(ch, pow_bits, device=device)  # warm
+            kernels.reset_launches()
+            nonce, wall = timed(lambda: grind(ch, pow_bits, device=device))
+            launches = kernels.LAUNCHES["poseidon_grind"]
+            if launches != nonce // GRIND_BATCH_P252_CUDA + 1:
+                fail(f"Poseidon252 grind at pow_bits {pow_bits}: {launches} "
+                     f"launches for nonce {nonce}")
+            if pow_bits == 20 and label == "mix_root":
+                # its hit lies at 122,593, ~3 min of host hashing
+                want = int(pos.poseidon_grind_hit_plain(
+                    digest, 0, nonce + 1, pow_bits, device))
+                if nonce != want:
+                    fail(f"Poseidon252 grind at pow_bits {pow_bits} "
+                         f"({label}): card {nonce}, plain scan {want}")
+                host = "the plain scan on the card's nonce"
+            elif pow_bits <= 20:
+                t1 = time.perf_counter()
+                want = grind_host(ch, pow_bits)
+                host_s = time.perf_counter() - t1
+                if nonce != want:
+                    fail(f"Poseidon252 grind at pow_bits {pow_bits} "
+                         f"({label}): card {nonce}, host {want}")
+                host = (f"host {host_s:.3f} s "
+                        f"({host_s / (want + 1) * 1e6:.1f} us a nonce), the "
+                        "same nonce")
+            else:
+                probe = ch.clone()
+                probe.mix_u64(nonce)
+                if probe.trailing_zeros() < pow_bits:
+                    fail(f"Poseidon252 grind at pow_bits 26 ({label}): "
+                         f"nonce {nonce} has too few trailing zeros")
+                host = "its digest checked on the host"
+                if label == "fresh":
+                    t1 = time.perf_counter()
+                    for start in range(0, nonce, GRIND_BATCH_P252_CUDA):
+                        count = min(GRIND_BATCH_P252_CUDA, nonce - start)
+                        if int(pos.poseidon_grind_hit_plain(
+                                digest, start, count, pow_bits, device)) >= 0:
+                            fail("Poseidon252 grind at pow_bits 26: the "
+                                 f"plain scan hits below {nonce}")
+                    host += (f", no hit below it by the plain scan "
+                             f"({time.perf_counter() - t1:.3f} s)")
+            print(f"  poseidon grind {label} pow_bits {pow_bits}: nonce "
+                  f"{nonce}; card {wall * 1e3:.3f} ms synchronised in "
+                  f"{launches} launch(es), "
+                  f"{(nonce + 1) / wall / 1e6:.2f} M nonces/s; {host}",
+                  flush=True)
+    phase("poseidon grind", time.perf_counter() - t0,
+          "grind of a Poseidon252 channel on the card == grind_host at "
+          "pow_bits 12, 16 and 20 (and the plain scan at 20); at 26 a hit, "
+          "one launch a batch")
 
 
 def secure_prove(run) -> None:
@@ -1696,7 +1784,8 @@ def mesh_phase(run) -> None:
 PHASES = ((None, kernel_phase), (None, m31_phase),
           (None, wide_fibonacci_phases),
           (None, fri_transcript), (None, defaults_phase),
-          (None, grind_rates), (None, secure_prove),
+          (None, grind_rates), ("poseidon_grind", poseidon_grind_phase),
+          (None, secure_prove),
           ("constraint_eval", constraint_eval_phase),
           ("poseidon2", poseidon2_phase), ("quotients", quotients_phase),
           (None, logup_phases), ("gkr", gkr_phases), (None, poseidon_phases),

@@ -338,6 +338,7 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
     pos.poseidon_hash_many([leaves, leaves, leaves])  # two sponge steps
     blake2s.grind_batch(blake2s.digest_bytes_to_words(b"\x00" * 32), 0, 64,
                         1, device)
+    pos.poseidon_grind_batch(5, 0, 64, 1, device)
     blake2s.transcript(cases.rand(rng, (8,), device, 1 << 32),
                        msg=cases.rand(rng, (8,), device, 1 << 32), k=1)
     c = cases.program_case("wide_fib", 5, device)
@@ -359,7 +360,7 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(device):
                                 "m31_mul": 1, "m31_mul_chain": 1,
                                 "hades_permutation": 2,
                                 "poseidon_merkle_layer": 2,
-                                "constraint_eval": 1,
+                                "poseidon_grind": 1, "constraint_eval": 1,
                                 "accumulate_quotients": 1,
                                 "gkr_round_sums": 1, "mle_fold": 2}
 
@@ -407,6 +408,49 @@ def test_grind_wrapper_guards(device):
         blake2s.grind_batch_cuda(words, 0, 0, 1, device)
     with pytest.raises(ValueError):
         blake2s.grind_batch_cuda(words, 0, 8, 1, "cpu")
+
+
+@pytest.mark.parametrize("label,pow_bits,start,count", [
+    ("mix_u64", 6, 0, 1 << 12),           # the hit in the first block
+    ("mix_root", 3, 0, 1 << 12),          # hits in every block: the least
+    ("fresh", 12, (1 << 32) - 3, 1 << 12),  # the hit past nonce 2^32
+    ("mix_u64", 12, 1000, 3000),          # a start no multiple of a block
+    ("fresh", 40, 0, 1 << 10),            # no hit: -1
+])
+def test_poseidon_grind_kernel_matches_plain(device, label, pow_bits, start,
+                                             count):
+    case = cases.poseidon_grind_case(label, pow_bits, start, count, device)
+    want = case.plain()
+    assert (int(want) >= 1 << 32) == (start > 1 << 31)
+    assert (int(want) < 0) == (pow_bits == 40)
+    _exact(case.kernel(), want)
+
+
+def test_poseidon_grind_on_the_card_equals_the_host(device):
+    from tstwo_tpu_torch.channel.poseidon import (FieldElement252,
+                                                  Poseidon252Channel)
+    from tstwo_tpu_torch.proof_of_work import grind, grind_device, grind_host
+
+    for label, digest in cases.poseidon_grind_digests():
+        for pow_bits in (12, 16):
+            ch = Poseidon252Channel(FieldElement252(digest))
+            before = ch.clone()
+            want = grind_host(ch, pow_bits)
+            kernels.reset_launches()
+            assert grind(ch, pow_bits, device=device) == want
+            assert kernels.LAUNCHES["poseidon_grind"] == 1
+            assert grind_device(ch, pow_bits, device, batch=1 << 8) == want
+            assert kernels.LAUNCHES["poseidon_grind"] == 1 + want // 256 + 1
+            assert ch == before
+
+
+def test_poseidon_grind_wrapper_guards(device):
+    with pytest.raises(ValueError):
+        pos.poseidon_grind_hit_cuda(5, 0, 0, 1, device)
+    with pytest.raises(ValueError):
+        pos.poseidon_grind_hit_cuda(cases.P252, 0, 8, 1, device)
+    with pytest.raises(ValueError):
+        pos.poseidon_grind_hit_cuda(5, 0, 8, 1, "cpu")
 
 
 def test_prove_with_grinding_on_the_card_equals_the_cpu_prove(device):

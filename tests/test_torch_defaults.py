@@ -118,6 +118,7 @@ def _jax_qm31s(seed: int, n: int):
 DIGEST = hashlib.blake2s(b"defaults").digest()
 ROOT_WORDS = np.arange(8, dtype=np.uint32) * 0x01010101
 GRIND_BITS = 6
+POSEIDON_DIGEST = int.from_bytes(DIGEST, "little") >> 5  # below p
 
 
 def _basic_air_columns() -> list:
@@ -566,6 +567,29 @@ def _grind(fn):
     return make, reference
 
 
+def _poseidon_grind_reference():
+    from tstwo_tpu.channel.poseidon import FieldElement252, Poseidon252Channel
+    from tstwo_tpu.proof_of_work import grind_host
+
+    return [grind_host(Poseidon252Channel(FieldElement252(POSEIDON_DIGEST)),
+                       GRIND_BITS)]
+
+
+def _poseidon_grind(fn):
+    """The Poseidon252 grind's scan of 64 nonces from a felt digest."""
+    def make(**kw):
+        from tstwo_tpu_torch.ops import poseidon252 as pos
+
+        out = getattr(pos, fn)(POSEIDON_DIGEST, 0, 64, GRIND_BITS, **kw)
+        return [out] if fn == "poseidon_grind_hit_plain" else [int(out)]
+
+    def reference():
+        nonce = _poseidon_grind_reference()[0]
+        return ([np.array([nonce])] if fn == "poseidon_grind_hit_plain"
+                else [nonce])
+    return make, reference
+
+
 def _pow(fn):
     """The grind from a channel at pow_bits 12, where it runs on the
     device."""
@@ -670,6 +694,10 @@ CREATORS = [
              _grind("grind_batch_plain")),
     _creator("ops.blake2s.grind_hit_plain", "pow_bits 6",
              _grind("grind_hit_plain")),
+    _creator("ops.poseidon252.poseidon_grind_batch", "pow_bits 6",
+             _poseidon_grind("poseidon_grind_batch"), "poseidon_grind"),
+    _creator("ops.poseidon252.poseidon_grind_hit_plain", "pow_bits 6",
+             _poseidon_grind("poseidon_grind_hit_plain")),
     _creator("proof_of_work.grind", "pow_bits 12", _pow("grind"),
              "blake2s_grind"),
     _creator("proof_of_work.grind_device", "pow_bits 12",

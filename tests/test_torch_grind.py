@@ -6,7 +6,8 @@ kernel, `ops.blake2s.grind_batch_plain`) against
 `tstwo_tpu.proof_of_work.grind`, which takes its batched device path at
 pow_bits >= 12 through XLA on the CPU, and against both packages'
 `grind_host`; the plain batch scan around nonce 2^32 against hashlib; the
-dispatch (a Poseidon252 channel grinds on the host); and a wide-Fibonacci
+dispatch (either channel on the device from pow_bits 12, on the host below
+it); and a wide-Fibonacci
 proof under pow_bits 14, byte for byte against the JAX package's.
 """
 import hashlib
@@ -113,23 +114,30 @@ def test_grind_leaves_the_channel_unchanged():
 
 
 def test_poseidon_channel_grinds_on_the_host(monkeypatch):
-    def no_device(*a, **kw):
-        raise AssertionError("a Poseidon252 channel must grind on the host")
-
-    calls = []
+    """Below DEVICE_MIN_POW_BITS, or with use_device=False, either channel
+    grinds on the host; from it on, a Poseidon252 channel goes to the
+    device scan as a Blake2s channel does."""
+    def device(channel, pow_bits, device=None):
+        calls.append(("device", channel, pow_bits, device))
+        return 55
 
     def host(channel, pow_bits):
-        calls.append((channel, pow_bits))
+        calls.append(("host", channel, pow_bits))
         return 77
 
-    monkeypatch.setattr(pow_, "grind_device", no_device)
+    calls = []
+    monkeypatch.setattr(pow_, "grind_device", device)
     monkeypatch.setattr(pow_, "grind_host", host)
     ch = Poseidon252Channel()
-    assert pow_.grind(ch, 12, device="cpu") == 77
-    assert calls == [(ch, 12)]
+    assert pow_.grind(ch, 11, device="cpu") == 77
+    assert pow_.grind(ch, 26, use_device=False) == 77
+    assert pow_.grind(ch, 12, device="cpu") == 55
+    assert calls == [("host", ch, 11), ("host", ch, 26),
+                     ("device", ch, 12, "cpu")]
     # a Blake2s channel below the threshold, or with use_device=False, too
     assert pow_.grind(Blake2sChannel(), 11, device="cpu") == 77
     assert pow_.grind(Blake2sChannel(), 16, use_device=False) == 77
+    assert pow_.grind(Blake2sChannel(), 12, device="cpu") == 55
 
 
 def test_grind_batch_refuses_bad_arguments():

@@ -12,9 +12,10 @@ compares them too, times them, and sets their times beside the bound of
 `cost`.  A case may also have `launch()`, the kernel alone without the
 host's preparation of its call, which chip_smoke.py times as the kernel.
 
-`KERNEL_ROWS`, `PROGRAM_ROWS`, `QUOTIENT_ROWS` and `GKR_ROWS` are the
-shapes the proves give the kernels: the rows of chip_smoke.py's kernel
-table (its phase 3; 8b-8c; 8d; the GKR phase).  `tests/test_torch_cuda.py`
+`KERNEL_ROWS`, `PROGRAM_ROWS`, `QUOTIENT_ROWS`, `GKR_ROWS` and
+`POSEIDON_GRIND_ROWS` are the shapes the proves give the kernels: the rows
+of chip_smoke.py's kernel table (its phase 3; 8b-8c; 8d; the GKR phase; the
+Poseidon252 grind phase).  `tests/test_torch_cuda.py`
 holds every one.
 
 Imports numpy, torch and tstwo_tpu_torch only: the GPU machine has no JAX.
@@ -292,6 +293,45 @@ def grind_case(label, pow_bits, start, count, device) -> Case:
                                                       pow_bits, device),
                 plain=lambda: blake2s.grind_hit_plain(words, start, count,
                                                       pow_bits, device))
+
+
+def poseidon_grind_digests() -> list:
+    """(label, digest) of three Poseidon252 channel states: fresh (the zero
+    felt), after a u64, after a root."""
+    from tstwo_tpu_torch.channel.poseidon import (FieldElement252,
+                                                  Poseidon252Channel)
+
+    fresh, mixed, rooted = Poseidon252Channel(), Poseidon252Channel(), \
+        Poseidon252Channel()
+    mixed.mix_u64(0x123456789)
+    rooted.mix_root(FieldElement252(P252 - 2))
+    return [(label, ch.digest.value) for label, ch
+            in (("fresh", fresh), ("mix_u64", mixed), ("mix_root", rooted))]
+
+
+def poseidon_grind_case(label, pow_bits, start, count, device) -> Case:
+    """The least nonce in [start, start + count) whose Poseidon252
+    mix_u64 digest from the channel state `label` has pow_bits trailing
+    zeros (-1: none), as an int64 [1].  Its cost is two permutations for
+    each nonce up to the hit (the kernel's blocks past a hit return at
+    once), beside the source count of their body."""
+    digest = dict(poseidon_grind_digests())[label]
+
+    def cost(want):
+        hit = int(want)
+        needed = count if hit < 0 else hit - start + 1
+        return Cost("poseidon252.cu", 4 * 8 + 8, 2 * HADES_OPS * needed,
+                    bounds={"source_count": (4 * 8 + 8, 2 * HADES_SOURCE_OPS
+                                             * needed)},
+                    extra={"nonces_needed": needed},
+                    suffix=f": hit {hit}" if pow_bits < 128 else "")
+
+    return Case(digest=digest, start=start, count=count, pow_bits=pow_bits,
+                cost=cost,
+                kernel=lambda: pos.poseidon_grind_hit_cuda(
+                    digest, start, count, pow_bits, device),
+                plain=lambda: pos.poseidon_grind_hit_plain(
+                    digest, start, count, pow_bits, device))
 
 
 def transcript_case(msg_words, msg_bytes, k, device, seed=0, strided=False,
@@ -888,4 +928,21 @@ GKR_ROWS = (
                       (2, False)]),
 )
 
-ROWS = KERNEL_ROWS + PROGRAM_ROWS + QUOTIENT_ROWS + GKR_ROWS
+# the Poseidon252 grind (chip_smoke.py `--only poseidon_grind`): a launch as
+# a pow_bits-26 grind makes it, 2^20 nonces, at a pow_bits no digest
+# reaches, so that every nonce is hashed; a hit in the first block; hits at
+# pow_bits 12 and 16 from each state; a hit past nonce 2^32
+POSEIDON_GRIND_ROWS = (
+    Row("poseidon_grind", "fresh pow_bits 128, 2^20 nonces, all hashed",
+        partial(poseidon_grind_case, "fresh", 128, 0, 1 << 20)),
+    Row("poseidon_grind", "mix_u64 pow_bits 6, [0, +2^20)",
+        partial(poseidon_grind_case, "mix_u64", 6, 0, 1 << 20)),
+    *(Row("poseidon_grind", f"{label} pow_bits {pow_bits}, [0, +2^16)",
+          partial(poseidon_grind_case, label, pow_bits, 0, 1 << 16))
+      for label in ("fresh", "mix_u64", "mix_root") for pow_bits in (12, 16)),
+    Row("poseidon_grind", "fresh pow_bits 12, [2^32 - 3, +2^16)",
+        partial(poseidon_grind_case, "fresh", 12, (1 << 32) - 3, 1 << 16)),
+)
+
+ROWS = (KERNEL_ROWS + PROGRAM_ROWS + QUOTIENT_ROWS + GKR_ROWS
+        + POSEIDON_GRIND_ROWS)

@@ -6,7 +6,8 @@ MDS [[3,1,1],[1,-1,1],[1,1,-2]], m=3, 8 full + 83 partial rounds, x^3
 S-box), plus poseidon_hash / poseidon_hash_many sponge and the Fiat-Shamir
 channel semantics of Rust stwo's Poseidon252Channel (embedded in reference
 channel/poseidon.ts:376-500).  Validated against hash values from stwo's
-test suite (see tests/test_poseidon.py).
+test suite (see tests/test_poseidon.py).  Each host permutation adds 1 to
+the span tree's counter `host_hades`.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from dataclasses import dataclass, field
 from typing import List, Sequence
 
 from ..fields import M31, QM31, SECURE_EXTENSION_DEGREE
+from ..tracing import count
 from . import ChannelTime
 
 P252 = (1 << 251) + 17 * (1 << 192) + 1
@@ -48,6 +50,7 @@ _ARK = _generate_round_constants()
 
 
 def hades_permutation(state: Sequence[int]) -> List[int]:
+    count("host_hades", 1)
     s = list(state)
     round_idx = 0
     for _ in range(_R_F // 2):

@@ -1,5 +1,6 @@
 // The Poseidon252 hash on the card: the Hades permutation of a batch of
-// states, and one layer of a Poseidon252 Merkle tree.
+// states, one layer of a Poseidon252 Merkle tree, and the proof-of-work
+// grind of a Poseidon252 channel (below the layer kernel).
 //
 // Counterparts of two jitted programs of the JAX package (no Pallas kernel
 // is involved there): tstwo_tpu/ops/poseidon252.py::hades_permutation and
@@ -131,6 +132,62 @@ poseidon_merkle_layer_kernel(const uint32_t* __restrict__ prev,
   for (int w = 0; w < 8; ++w) out[static_cast<size_t>(w) * n + i] = digest.w[w];
 }
 
+// Proof-of-work grind of a Poseidon252 channel: thread i takes nonce =
+// start + i and computes the digest the channel's mix_u64(nonce) would set,
+// poseidon_hash_many([digest, nonce]): the sponge over [digest, nonce, 1, 0],
+// s = Hades(digest, nonce, 0), then Hades(s0 + 1, s1, s2), whose s0 is the
+// new digest.  The channel's trailing_zeros reads a digest as 32 big-endian
+// bytes and counts the trailing zeros of the first 16 as one little-endian
+// u128: words 7, 6, 5, 4 of the felt, each byte-reversed, from the low end
+// (128 when all four are zero).  A nonce with at least pow_bits of them goes
+// into *best by atomicMin, so the least hit of the launch wins whichever
+// block finds its hit first.  *best starts at all ones; a block whose first
+// nonce lies above it returns at once (a hit below exists).
+//
+// Replaces no kernel of the JAX package, whose proof_of_work.py grinds a
+// Poseidon252 channel on the host, one nonce at a time.  Two permutations a
+// nonce and 8 bytes written a launch: integer operations bound it, as they
+// bound the layers, and the design is theirs, one thread a state in
+// registers.  The channel digest comes by value, into Montgomery form in
+// each thread (one product beside the permutations' 214).
+struct GrindFelt {
+  uint32_t w[8];
+};
+
+__global__ void __launch_bounds__(kThreads)
+poseidon_grind_kernel(const GrindFelt digest, unsigned long long start, long long count,
+                      int pow_bits, unsigned long long* __restrict__ best) {
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
+  if (*reinterpret_cast<volatile unsigned long long*>(best) <
+      start + static_cast<unsigned long long>(first))
+    return;
+  const long long i = first + threadIdx.x;
+  if (i >= count) return;
+  const unsigned long long nonce = start + static_cast<unsigned long long>(i);
+  const Felt r2 = const_felt(tstwo::kHadesR2);
+  Felt v = tstwo::felt_load(digest.w);
+  Felt s[3];
+  s[0] = tstwo::felt_mont_mul(v, r2);
+  v = tstwo::felt_zero();
+  v.w[0] = static_cast<uint32_t>(nonce);
+  v.w[1] = static_cast<uint32_t>(nonce >> 32);
+  s[1] = tstwo::felt_mont_mul(v, r2);
+  s[2] = tstwo::felt_zero();
+  tstwo::hades_permute(s, kHadesConsts);
+  s[0] = tstwo::felt_add(s[0], const_felt(tstwo::kHadesOne));
+  tstwo::hades_permute(s, kHadesConsts);
+  Felt one = tstwo::felt_zero();
+  one.w[0] = 1;
+  const Felt d = tstwo::felt_mont_mul(s[0], one);
+  int tz = 128;
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    const uint32_t word = __byte_perm(d.w[7 - k], 0, 0x0123);
+    if (word != 0) tz = 32 * k + __ffs(word) - 1;
+  }
+  if (tz >= pow_bits) atomicMin(best, nonce);
+}
+
 }  // namespace
 
 // Copies the constants of felt252.cuh (kHadesConstFelts felts of 8 words, a
@@ -171,5 +228,24 @@ extern "C" int tstwo_poseidon_merkle_layer(const int32_t* prev, const void* cons
   poseidon_merkle_layer_kernel<<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const uint32_t*>(prev), segs, static_cast<int>(rows),
       reinterpret_cast<uint32_t*>(out), n);
+  return cudaGetLastError();
+}
+
+// The least nonce in [start, start + count) whose mix_u64 digest has at
+// least pow_bits trailing zeros goes into *best (device, u64), which the
+// caller presets to all ones; it stays so if there is none.  digest: the 8
+// words of the channel's felt (a host array, value below p), passed to the
+// kernel by value.  count <= 2^40, start + count <= 2^64.
+extern "C" int tstwo_poseidon_grind(const uint32_t* digest, unsigned long long start,
+                                    long long count, int pow_bits,
+                                    unsigned long long* best, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (digest == nullptr || best == nullptr || count <= 0 || count > (1LL << 40) ||
+      pow_bits < 0 || start + static_cast<unsigned long long>(count - 1) < start)
+    return cudaErrorInvalidValue;
+  GrindFelt d;
+  for (int w = 0; w < 8; ++w) d.w[w] = digest[w];
+  const unsigned grid = static_cast<unsigned>((count + kThreads - 1) / kThreads);
+  poseidon_grind_kernel<<<grid, kThreads, 0, stream>>>(d, start, count, pow_bits, best);
   return cudaGetLastError();
 }

@@ -15,8 +15,10 @@ of proof-of-work nonces as `blake2s_grind`, a Fiat-Shamir transcript step
 as `blake2s_transcript`),
 ops/fri_ops.py, ops/m31_kernels.py, ops/poseidon252.py (the Hades
 permutation of a batch as `hades_permutation`, a Poseidon252 Merkle layer
-as `poseidon_merkle_layer`), ops/constraint_eval.py (a component's
-constraint program over its evaluation domain as `constraint_eval`) and
+as `poseidon_merkle_layer`, a batch of a Poseidon252 channel's
+proof-of-work nonces as `poseidon_grind`), ops/constraint_eval.py (a
+component's constraint program over its evaluation domain as
+`constraint_eval`) and
 pcs/quotients.py (the DEEP quotients of a group of columns of one size as
 `accumulate_quotients`) and lookups/gkr_kernels.py (a GKR oracle's two
 round sums as `gkr_round_sums`, an MLE's fold as `mle_fold`) add one per
@@ -76,6 +78,9 @@ _SIGNATURES = {
     # prev, seg_ptrs, seg_strides, seg_rows, n_segs, out, n, stream
     "tstwo_poseidon_merkle_layer": (_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
                                     ctypes.c_longlong, _VP),
+    # digest (8 host words), start, count, pow_bits, best, stream
+    "tstwo_poseidon_grind": (_VP, ctypes.c_ulonglong, ctypes.c_longlong,
+                             ctypes.c_int, _VP, _VP),
     # program, n_instr, loads, n_loads, scalars, n_scalars, denom_off,
     # ptrs, strides, acc, log_n, trace_log, n_slots, rows_per_thread, stream
     "tstwo_constraint_eval": (_VP, ctypes.c_int, _VP, ctypes.c_int, _VP,
@@ -120,7 +125,8 @@ LAUNCHES = {"cfft_forward": 0, "cfft_inverse": 0, "blake2s": 0,
             "merkle_layer": 0, "merkle_tail": 0, "blake2s_grind": 0,
             "blake2s_transcript": 0, "deinterleave": 0,
             "m31_mul": 0, "m31_mul_chain": 0, "hades_permutation": 0,
-            "poseidon_merkle_layer": 0, "constraint_eval": 0,
+            "poseidon_merkle_layer": 0, "poseidon_grind": 0,
+            "constraint_eval": 0,
             "accumulate_quotients": 0, "gkr_round_sums": 0, "mle_fold": 0}
 
 _lib = None

@@ -8,12 +8,14 @@ spreads a felt over 21 limbs of 12 bits (the TPU has no wide multiply);
 the functions here have its names and its values, not its layout: Python
 ints go in and out through `ints_to_felts` / `felts_to_ints`.
 
-Two functions have a hand-written kernel (csrc/poseidon252.cu) beside
-their plain version: `hades_permutation` (a batch of states) and
+Three functions have a hand-written kernel (csrc/poseidon252.cu) beside
+their plain version: `hades_permutation` (a batch of states),
 `merkle_layer` (one layer of a Poseidon252 Merkle tree: child pairs and
-column values read where they lie, packed, hashed).  A CUDA tensor goes to
-the kernel, a CPU tensor to the plain version.  `add`, `sub`, `mul` and
-`pack_m31_columns` are plain on any device.
+column values read where they lie, packed, hashed) and
+`poseidon_grind_batch` (the least proof-of-work nonce of a range for a
+Poseidon252 channel).  A CUDA tensor or device goes to the kernel, the CPU
+to the plain version.  `add`, `sub`, `mul` and `pack_m31_columns` are
+plain on any device.
 
 The plain versions compute in int64 on 9 limbs of 28 bits, so that a
 column of limb products (9 x 2^56) stays below 2^63, with Montgomery
@@ -35,8 +37,9 @@ import torch
 
 from .. import kernels
 from ..channel.poseidon import _ARK, _N_ROUNDS, _R_F, P252
-from ..utils import (as_int32_bits, entry_device, to_numpy_u32,
-                     to_torch_u32)
+from ..utils import (as_int32_bits, entry_device, to_host_list,
+                     to_numpy_u32, to_torch_u32)
+from .blake2s import grind_trailing_zeros
 
 LIMB_BITS = 28
 N_LIMBS = 9                     # 9 * 28 = 252
@@ -403,3 +406,80 @@ def merkle_layer(prev: Optional[torch.Tensor],
     if kernels.is_cuda(device):
         return merkle_layer_cuda(prev, columns, n, device)
     return merkle_layer_plain(prev, columns, n, device)
+
+
+# ---------------------------------------------------------------------------
+# The proof-of-work grind of a Poseidon252 channel
+# ---------------------------------------------------------------------------
+
+def _grind_args(digest: int, start: int, count: int, pow_bits: int
+                ) -> np.ndarray:
+    if not 0 <= digest < P252:
+        raise ValueError("digest: expected a felt252 below p")
+    if count <= 0 or start < 0 or start + count > 1 << 63 or pow_bits < 0:
+        raise ValueError(f"grind range [{start}, {start} + {count}) or "
+                         f"pow_bits {pow_bits} out of range")
+    return np.array(_int_to_words(digest), dtype=np.uint32)
+
+
+def channel_trailing_zeros(felts: torch.Tensor) -> torch.Tensor:
+    """`Poseidon252Channel.trailing_zeros` of digests [8, N] as int64 [N]:
+    the first 16 of a felt's 32 big-endian bytes read as one LE u128, that
+    is words 7, 6, 5, 4, each byte-reversed, from the low end (128 when all
+    four are zero)."""
+    w = felts[4:].flip(0).to(torch.int64) & _U32
+    swapped = ((w & 0xFF) << 24 | (w >> 8 & 0xFF) << 16
+               | (w >> 16 & 0xFF) << 8 | w >> 24)
+    return grind_trailing_zeros(swapped)
+
+
+def poseidon_grind_hit_plain(digest: int, start: int, count: int,
+                             pow_bits: int, device=None) -> torch.Tensor:
+    """Plain PyTorch version on `device` (CUDA device 0 unless named): the
+    mix_u64 digest of every nonce, poseidon_hash_many([digest, nonce]), by
+    the plain sponge, its trailing zeros, and the first nonce with >=
+    pow_bits of them as an int64 [1] tensor on `device` (-1 if none),
+    without a wait for the device."""
+    words = _grind_args(digest, start, count, pow_bits)
+    device = entry_device(device)
+    nonces = start + torch.arange(count, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(nonces)
+    nonce_felts = as_int32_bits(torch.stack(
+        [nonces & _U32, nonces >> 32] + [zero] * 6))
+    digests = to_torch_u32(words[:, None], device).expand(8, count)
+    hit = channel_trailing_zeros(_sponge([digests, nonce_felts], count,
+                                         device, hades_permutation_plain)
+                                 ) >= pow_bits
+    first = torch.argmax(hit.to(torch.int8))  # the first of the maxima
+    return torch.where(hit[first], nonces[first], -1).reshape(1)
+
+
+def poseidon_grind_hit_cuda(digest: int, start: int, count: int,
+                            pow_bits: int, device) -> torch.Tensor:
+    """One launch of csrc/poseidon252.cu's grind kernel over the nonces
+    [start, start + count) on CUDA `device`: the least hit as an int64 [1]
+    tensor on the device (-1 if none), not waited for."""
+    words = _grind_args(digest, start, count, pow_bits)
+    device = torch.device(device)
+    if not kernels.is_cuda(device):
+        raise ValueError(f"expected a CUDA device, got {device}")
+    _ensure_kernel_constants(device)
+    best = torch.full((1,), -1, dtype=torch.int64, device=device)  # all ones
+    kernels.launch("poseidon_grind", "poseidon_grind", device,
+                   words.ctypes.data, start, count, pow_bits, best.data_ptr())
+    return best
+
+
+def poseidon_grind_batch(digest: int, start: int, count: int, pow_bits: int,
+                         device=None) -> int:
+    """The least nonce in [start, start + count) whose
+    `Poseidon252Channel.mix_u64(nonce)` digest, from the channel digest
+    `digest` (an int below p), has >= pow_bits trailing zeros, or -1.  A
+    CUDA device (device 0 unless named) launches the kernel and reads 8
+    bytes back, the CPU runs the plain version."""
+    device = entry_device(device)
+    if kernels.is_cuda(device):
+        hit = poseidon_grind_hit_cuda(digest, start, count, pow_bits, device)
+    else:
+        hit = poseidon_grind_hit_plain(digest, start, count, pow_bits, device)
+    return to_host_list(hit)[0]
